@@ -18,9 +18,33 @@ Phases, one JSON line each; any failure exits non-zero:
            uint8 frames per call, a KITTI K: exactly 2 LM launches per call,
            finite outputs of the right shapes, images/s from CUDA events;
   profile  torch.profiler over two serving calls: device time by kernel,
-           idle share; the full table goes to chip_smoke_out/serve_profile.json.
-Then the kernels line, the nvidia-smi line and, last, {"ok": true, ...}.
-Needs one CUDA device; without one it exits non-zero and prints no result.
+           idle share; the full table goes to chip_smoke_out/serve_profile.json;
+  splat    the heatmap splat kernel against its plain PyTorch version at the
+           training path's shape (B 32, N 64, C 3, 96x320, the inputs
+           build_targets makes from the train batch) and on an edge batch
+           (centers off the map, R = 0, an all-masked image, noise slots, two
+           classes on one center): max |d| <= 1e-6 and the same pixels equal
+           to 1.0; CUDA-event times, bytes, operations and the bound;
+  train_fp32  DLA-34 384x128 batch 2 fp32 (TF32 off), one make_train_step on
+           the GPU against the same step on the CPU, same seed-0 weights and
+           batch: loss and aux within 1e-4 relative, gradients within
+           this network's float32 noise floor (whole gradient <= 5e-2 and
+           each tensor <= 1e-1 relative in L2; on the CPU float32 against
+           float64 differs by 0.95% and at most 1.3%, GPU against CPU by
+           2.1% and 3.2% on the H100);
+  train    configs/rtm3d_dla34_kitti_tpu.yaml's model and solver at full
+           width, DLA-34 1280x384 batch 32 bf16 autocast, EMA, MAX_OBJS 64,
+           synthetic uint8 frames and label blocks (a quarter of the slots
+           masked, a tenth noise): 3 warm-up steps, 10 timed steps on
+           distinct batches, 2 eval-loss steps; finite loss and aux, one
+           splat launch per step; then 20 steps on one batch with
+           WARMUP_ITERS 0, whose loss must fall; images/s, ms per step and
+           peak memory;
+  train_profile  torch.profiler over two train steps, the table to
+           chip_smoke_out/train_profile.json.
+Then the seconds of each phase, the kernels line, the nvidia-smi line and,
+last, {"ok": true, ...}. Needs one CUDA device; without one it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -45,6 +69,8 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 LM_REPLACES = "rtm3d_tpu/ops/lm_solver.py:35"
+SPLAT_REPLACES = "rtm3d_tpu/ops/splat.py:26"
+TRAIN_BATCH, TRAIN_OBJS, TRAIN_WARMUP, TRAIN_TIMED, LOSS_FALL_STEPS = 32, 64, 3, 10, 20
 
 
 def emit(phase: str, **fields) -> None:
@@ -63,6 +89,23 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device milliseconds of the kernels whose name holds ``kernel``
+    over ``reps`` calls of ``fn()``, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if kernel in e.key and e.self_device_time_total > 0]
+    if not rows:
+        raise AssertionError(f"the profiler saw no {kernel} launch")
+    return sum(e.self_device_time_total for e in rows) / sum(e.count for e in rows) / 1e3
 
 
 def synthetic_lanes(rng, n_det: int, dim_ref):
@@ -184,7 +227,7 @@ def logits_phase(cfg_base, nn_model) -> None:
         raise AssertionError(f"GPU fp32 logits disagree with the CPU: {rec}")
 
 
-def serve_phase(cfg_base, nn_model, lm, Detector) -> dict:
+def serve_phase(cfg_base, nn_model, lm, splat, Detector) -> dict:
     cfg = cfg_base.clone()
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
     det = Detector(cfg, nn_model.create_model(cfg, torch.Generator().manual_seed(0)), device="cuda")
@@ -198,7 +241,7 @@ def serve_phase(cfg_base, nn_model, lm, Detector) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    lm.lm_solve.launches = 0
+    lm.lm_solve.launches = splat.splat_heatmap.launches = 0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
@@ -207,7 +250,7 @@ def serve_phase(cfg_base, nn_model, lm, Detector) -> dict:
     end.record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = lm.lm_solve.launches
+    launches, splat_launches = lm.lm_solve.launches, splat.splat_heatmap.launches
     dev_ms = start.elapsed_time(end)
 
     shapes = {"cls": (BATCH, TOPK), "scores": (BATCH, TOPK), "valid": (BATCH, TOPK),
@@ -237,22 +280,24 @@ def serve_phase(cfg_base, nn_model, lm, Detector) -> dict:
         "valid_frac": float(out["valid"].mean()), "accepted_frac": float(out["accepted"].mean()),
     }
     emit("serve", **rec)
-    if launches != 2 * SERVE_CALLS:
-        raise AssertionError(f"serve: {launches} LM launches in {SERVE_CALLS} calls, expected 2 per call")
-    profile_serving(det, frames[0], K)
+    if launches != 2 * SERVE_CALLS or splat_launches != 0:
+        raise AssertionError(f"serve: {launches} LM launches in {SERVE_CALLS} calls, expected 2 per call "
+                             f"(and {splat_launches} splat launches, expected none)")
+    profile_calls("profile", lambda: det(frames[0], K), 2, "chip_smoke_out/serve_profile.json")
     return rec
 
 
-def profile_serving(det, frame, K) -> None:
-    """torch.profiler over two detect calls: device time by kernel name and
-    the device's busy share of the wall time; written to chip_smoke_out/."""
+def profile_calls(phase: str, call, calls: int, path: str) -> dict:
+    """torch.profiler over ``calls`` runs of ``call()``: device time by kernel
+    name and the device's busy share of the wall time; the table goes to
+    ``path``."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(2):
-            det(frame, K)
+        for _ in range(calls):
+            call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [
@@ -263,11 +308,213 @@ def profile_serving(det, frame, K) -> None:
     # an aten:: row's device time is that of its kernels, which have rows too
     busy = sum(r["device_us"] for r in rows if not r["name"].startswith("aten::"))
     os.makedirs("chip_smoke_out", exist_ok=True)
-    with open("chip_smoke_out/serve_profile.json", "w") as f:
+    with open(path, "w") as f:
         json.dump({"wall_us": wall_us, "device_us": busy, "kernels": rows}, f, indent=1)
-    emit("profile", calls=2, wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-         idle_share=(1 - busy / wall_us) if wall_us > 0 and busy > 0 else "not measured",
-         top=rows[:12])
+    rec = {"calls": calls, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "idle_share": (1 - busy / wall_us) if wall_us > 0 and busy > 0 else "not measured",
+           "top": [r for r in rows if not r["name"].startswith("aten::")][:15]}
+    emit(phase, **rec)
+    return rec
+
+
+def synthetic_labels(rng, B: int, N: int, scale: float = 1.0) -> dict:
+    """Label blocks as tools/bench_train.py:31-60 makes them at 1280x384 (90x55
+    px boxes, a KITTI K), scaled by ``scale``, with about a quarter of the
+    slots masked out and a tenth of the live ones flagged as noise."""
+    w, h = W * scale, H * scale
+    x1 = rng.rand(B, N) * (w - 100 * scale)
+    y1 = rng.rand(B, N) * (h - 60 * scale)
+    K = np.array([721.5, 0, 609.6, 0, 721.5, 172.9, 0, 0, 1], np.float32)
+    K[:6] *= scale
+    mask = rng.rand(B, N) > 0.25
+    return {
+        "cls": torch.from_numpy(rng.randint(0, 3, (B, N)).astype(np.int32)),
+        "bbox": torch.from_numpy(np.stack([x1, y1, x1 + 90 * scale, y1 + 55 * scale], -1).astype(np.float32)),
+        "dim": torch.from_numpy((rng.rand(B, N, 3) + 0.8).astype(np.float32)),
+        "alpha": torch.zeros((B, N)),
+        "ry": torch.from_numpy(rng.uniform(-3, 3, (B, N)).astype(np.float32)),
+        "loc": torch.from_numpy(np.stack(
+            [rng.randn(B, N) * 5, rng.randn(B, N) * 0.3 + 1.2, rng.rand(B, N) * 40 + 6], -1).astype(np.float32)),
+        "K": torch.from_numpy(np.tile(K, (B, N, 1))),
+        "mask": torch.from_numpy(mask),
+        "noise_mask": torch.from_numpy(mask & (rng.rand(B, N) < 0.1)),
+    }
+
+
+def splat_edge_inputs(B: int, N: int, feat_hw):
+    """Edge cases at the training map size: image 0 all masked; image 1
+    centers off the map whose windows reach in; image 2 R = 0 slots, half of
+    them noise; image 3 two classes on the same centers, one noise."""
+    Hf, Wf = feat_hw
+    rng = np.random.RandomState(11)
+    m_proj = np.stack([rng.randint(0, Wf, (B, N)), rng.randint(0, Hf, (B, N))], -1)
+    sigma = rng.rand(B, N) * 4 + 0.5
+    radius = np.ceil(sigma * 3)
+    cls = rng.randint(0, 3, (B, N))
+    mask = np.ones((B, N), bool)
+    noise = np.zeros((B, N), bool)
+    mask[0] = False
+    m_proj[1, :, 0] = np.where(np.arange(N) % 2 == 0, -rng.randint(1, 8, N), Wf + rng.randint(0, 8, N))
+    radius[2] = 0.0
+    noise[2, ::2] = True
+    m_proj[3, 1::2] = m_proj[3, ::2]
+    cls[3, ::2], cls[3, 1::2] = 0, 1
+    noise[3, 1::4] = True
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+        m_proj.astype(np.int32), cls.astype(np.int32), sigma.astype(np.float32),
+        radius.astype(np.float32), mask, noise)]
+
+
+def splat_phase(splat, inputs, feat_hw, num_classes: int, name: str) -> dict:
+    """Kernel against plain version on the same inputs: max |d| <= 1e-6 and
+    the same set of pixels equal to 1.0 (what the focal loss counts)."""
+    got = splat.splat_heatmap(*inputs, feat_hw, num_classes)
+    torch.cuda.synchronize()
+    ref = splat.splat_heatmap_reference(*inputs, feat_hw, num_classes)
+    err = (got - ref).abs().max().item()
+    ones_equal = bool(torch.equal(got == 1.0, ref == 1.0))
+    # back to back from Python the wrapper's host work outruns the kernel, so
+    # the per-call event time is host-bound; the kernel's own device time
+    # comes from the profiler
+    call_ms = cuda_time_ms(lambda: splat.splat_heatmap(*inputs, feat_hw, num_classes), 50, 3)
+    kernel_ms = kernel_device_ms(lambda: splat.splat_heatmap(*inputs, feat_hw, num_classes), 20, "splat_kernel")
+    plain_ms = cuda_time_ms(lambda: splat.splat_heatmap_reference(*inputs, feat_hw, num_classes), 5, 1)
+    B, N = inputs[1].shape
+    nbytes = splat.splat_bytes(B, N, feat_hw, num_classes)
+    flops = splat.splat_flops(inputs[0], inputs[3], inputs[4], feat_hw)
+    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    rec = {
+        "shape": [B, N, num_classes, *feat_hw], "max_abs_err": err, "ones_equal": ones_equal,
+        "ones": int((ref == 1.0).sum().item()), "nonzero_frac": float((ref > 0).float().mean().item()),
+        "kernel_ms": kernel_ms, "kernel_us": kernel_ms * 1e3, "call_ms": call_ms, "plain_ms": plain_ms,
+        "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+        "bound_by": "operations" if flops / PEAK_FP32_FLOPS > nbytes / PEAK_BYTES else "bytes",
+    }
+    emit(f"splat_{name}", **rec)
+    if not torch.isfinite(got).all() or err > 1e-6 or not ones_equal:
+        raise AssertionError(f"splat kernel disagrees with its plain version: {rec}")
+    return rec
+
+
+def train_fp32_phase(cfg_base, nn_model, step_mod, state_mod) -> None:
+    """One train step of DLA-34 at 384x128 batch 2 in fp32 on the GPU against
+    the same step on the CPU. The float32 gradient of this network at random
+    init is noisy: on the CPU, float32 against float64 differs by 0.95% of
+    the whole gradient (L2) and by up to 1.3% in one tensor; GPU against CPU
+    by 2.1% and 3.2% on an H100. So the gradients are held at 5e-2
+    and 1e-1 in L2 (a wrong backward is off by O(1)); loss and aux at 1e-4
+    relative."""
+    cfg = cfg_base.clone()
+    cfg.INPUT_SIZE = (384, 128)
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    model = nn_model.create_model(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(3)
+    batch = {"image": torch.from_numpy((rng.rand(2, 128, 384, 3) * 255).astype(np.uint8)),
+             "labels": synthetic_labels(rng, 2, TRAIN_OBJS, scale=0.3)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        state = state_mod.TrainState.create(model, cfg, device=dev)
+        state, m = step_mod.make_train_step(cfg, device=dev)(state, batch)
+        grads = {k: p.grad.detach().double().cpu() for k, p in state.model.named_parameters()}
+        out[dev] = (m["loss"].item(), m["loss_items"].double().cpu(), grads, time.perf_counter() - t0)
+    (lg, ag, gg, tg), (lc, ac, gc, tc) = out["cuda"], out["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    aux_rel = ((ag - ac).abs() / ac.abs().clamp(min=1e-12)).max().item()
+    per = {k: ((gg[k] - gc[k]).norm() / gc[k].norm()).item() for k in gc if gc[k].norm() > 0}
+    flat_g, flat_c = torch.cat([g.flatten() for g in gg.values()]), torch.cat([g.flatten() for g in gc.values()])
+    total = ((flat_g - flat_c).norm() / flat_c.norm()).item()
+    worst = max(per, key=per.get)
+    max_rel = {k: ((gg[k] - gc[k]).abs().max() / gc[k].abs().max()).item() for k in per}
+    rec = {"input": "384x128", "batch": 2, "loss_gpu": lg, "loss_cpu": lc, "loss_rel": loss_rel,
+           "aux_max_rel": aux_rel, "grad_l2_rel_total": total, "grad_l2_rel_worst": per[worst],
+           "grad_l2_rel_worst_tensor": worst, "grad_l2_rel_median": float(np.median(list(per.values()))),
+           "grad_max_over_tensor_max_worst": max(max_rel.values()),
+           "grad_max_over_tensor_max_median": float(np.median(list(max_rel.values()))),
+           "gpu_step_s": tg, "cpu_step_s": tc}
+    emit("train_fp32", **rec)
+    if not np.isfinite(lg) or loss_rel > 1e-4 or aux_rel > 1e-4 or per[worst] > 1e-1 or total > 5e-2:
+        raise AssertionError(f"train step on the GPU disagrees with the CPU: {rec}")
+
+
+def train_phase(nn_model, step_mod, state_mod, load_config, lm, splat) -> dict:
+    """configs/rtm3d_dla34_kitti_tpu.yaml at full width on distinct synthetic
+    batches, then the loss-falls check on one repeated batch."""
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "configs", "rtm3d_dla34_kitti_tpu.yaml"))
+    cfg.INPUT_SIZE = (W, H)  # the rect shape of (1280, 1280) IS_RECT on KITTI frames
+    cfg.BATCH_SIZE, cfg.DATASET.MAX_OBJS = TRAIN_BATCH, TRAIN_OBJS  # the file's 32 and the default 64
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rng = np.random.RandomState(4)
+    batches = [
+        {"image": torch.randint(0, 256, (TRAIN_BATCH, H, W, 3), dtype=torch.uint8, device="cuda", generator=gen),
+         "labels": {k: v.cuda() for k, v in synthetic_labels(rng, TRAIN_BATCH, TRAIN_OBJS).items()}}
+        for _ in range(TRAIN_WARMUP + TRAIN_TIMED)
+    ]
+    model = nn_model.create_model(cfg, torch.Generator().manual_seed(0))
+    state = state_mod.TrainState.create(model, cfg, device="cuda")
+    step = step_mod.make_train_step(cfg, device="cuda")
+    eval_step = step_mod.make_eval_loss_step(cfg, device="cuda")
+    for b in batches[:TRAIN_WARMUP]:
+        state, _ = step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    lm.lm_solve.launches = splat.splat_heatmap.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    metrics = []
+    t0 = time.perf_counter()
+    start.record()
+    for b in batches[TRAIN_WARMUP:]:
+        state, m = step(state, b)
+        metrics.append(m)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    train_launches, train_lm = splat.splat_heatmap.launches, lm.lm_solve.launches
+    dev_ms = start.elapsed_time(end)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    splat.splat_heatmap.launches = 0
+    evals = [eval_step(state, b) for b in batches[:2]]
+    torch.cuda.synchronize()
+    eval_launches = splat.splat_heatmap.launches
+
+    losses = torch.stack([m["loss"] for m in metrics]).cpu()
+    aux = torch.stack([m["loss_items"] for m in metrics] + [e["loss_items"] for e in evals]).cpu()
+    rec = {
+        "batch": TRAIN_BATCH, "input": f"{W}x{H}", "dtype": "bfloat16 autocast", "ema": True,
+        "max_objs": TRAIN_OBJS, "timed_steps": TRAIN_TIMED,
+        "images_per_s": TRAIN_BATCH * TRAIN_TIMED / (dev_ms / 1e3), "ms_per_step": dev_ms / TRAIN_TIMED,
+        "wall_images_per_s": TRAIN_BATCH * TRAIN_TIMED / wall_s, "peak_mem_gb": peak_gb,
+        "splat_launches": train_launches, "lm_launches": train_lm, "eval_splat_launches": eval_launches,
+        "loss_first": losses[0].item(), "loss_last": losses[-1].item(),
+        "eval_loss": [e["loss"].item() for e in evals],
+        "num_targets": int(metrics[0]["num_targets"].item()),
+    }
+    del state, metrics, evals
+    torch.cuda.empty_cache()
+
+    # the loss falls on one repeated batch
+    fall_cfg = cfg.clone()
+    fall_cfg.SOLVER.WARMUP_ITERS = 0
+    state = state_mod.TrainState.create(model, fall_cfg, device="cuda")
+    step = step_mod.make_train_step(fall_cfg, device="cuda")
+    fall = []
+    for _ in range(LOSS_FALL_STEPS):
+        state, m = step(state, batches[0])
+        fall.append(m["loss"])
+    fall = torch.stack(fall).cpu()
+    rec["repeated_batch_loss"] = [round(v, 4) for v in fall.tolist()]
+    emit("train", **rec)
+    if not (torch.isfinite(losses).all() and torch.isfinite(aux).all() and torch.isfinite(fall).all()):
+        raise AssertionError(f"train: non-finite loss or aux {rec}")
+    if train_launches != TRAIN_TIMED or eval_launches != 2 or train_lm != 0:
+        raise AssertionError(f"train: expected one splat launch per step, got {rec}")
+    if not fall[-1] < fall[0]:
+        raise AssertionError(f"train: the loss did not fall over {LOSS_FALL_STEPS} steps on one batch: {rec}")
+    profile_calls("train_profile", lambda: step(state, batches[1]), 2, "chip_smoke_out/train_profile.json")
+    return rec
 
 
 def main() -> int:
@@ -275,15 +522,27 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from rtm3d_tpu_torch import default_config
+    from rtm3d_tpu_torch import default_config, load_config
     from rtm3d_tpu_torch.api import Detector
+    from rtm3d_tpu_torch.data.targets import heatmap_inputs
     from rtm3d_tpu_torch.nn import model as nn_model
     from rtm3d_tpu_torch.ops import lm_solver as lm
+    from rtm3d_tpu_torch.ops import splat
+    from rtm3d_tpu_torch.train import state as state_mod
+    from rtm3d_tpu_torch.train import step as step_mod
     from rtm3d_tpu_torch.utils import kernel_build
 
     # fp32 comparisons: no TF32 in cuDNN convs or cuBLAS matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    seconds = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        seconds[name] = round(now - t_phase, 2)
+        t_phase = now
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -293,12 +552,12 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
          capability=list(torch.cuda.get_device_capability(0)))
 
-    t0 = time.perf_counter()
-    built = kernel_build.build()
-    emit("build", seconds=time.perf_counter() - t0,
+    built = kernel_build.build()  # one nvcc per source, all at once
+    emit("build", seconds=time.perf_counter() - t_phase,
          kernels={n: {"seconds": b["seconds"],
                       "ptxas": [l.strip() for l in b["log"].splitlines() if "registers" in l or "spill" in l]}
                   for n, b in built.items()})
+    phase_done("build")
 
     cfg = default_config()
     cfg.INPUT_SIZE = (W, H)
@@ -318,8 +577,24 @@ def main() -> int:
     x_prior = first.pop("x").reshape(8, 2, n).gather(1, best[None, None].expand(8, 1, n))[:, 0]
     x03 = torch.cat([x02, x_prior], 1).contiguous()
     second = lm_phase(lm, uv, x03, kp, n, 0.0)
+    phase_done("lm")
     logits_phase(cfg, nn_model)
-    served = serve_phase(cfg, nn_model, lm, Detector)
+    phase_done("logits")
+    served = serve_phase(cfg, nn_model, lm, splat, Detector)
+    phase_done("serve_and_profile")
+
+    # the splat at the training path's shape: the inputs build_targets makes
+    # from a train batch's label block
+    feat_hw = (H // 4, W // 4)
+    labels = {k: v.cuda() for k, v in synthetic_labels(np.random.RandomState(5), TRAIN_BATCH, TRAIN_OBJS).items()}
+    splat_main = splat_phase(splat, heatmap_inputs(labels), feat_hw, 3, "train_shape")
+    splat_edge = splat_phase(splat, splat_edge_inputs(4, TRAIN_OBJS, feat_hw), feat_hw, 3, "edge")
+    phase_done("splat")
+    train_fp32_phase(cfg, nn_model, step_mod, state_mod)
+    phase_done("train_fp32")
+    trained = train_phase(nn_model, step_mod, state_mod, load_config, lm, splat)
+    phase_done("train_and_profile")
+    emit("seconds", **seconds, total=round(sum(seconds.values()), 2))
 
     pair = (first, second)
     print(json.dumps({"kernels": [{
@@ -334,6 +609,19 @@ def main() -> int:
         "plain_ms": sum(r["plain_ms"] for r in pair),
         "bound_ms": sum(r["bound_ms"] for r in pair),
         "bound_by": first["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "splat",
+        "route": "cuda",
+        "source": "rtm3d_tpu_torch/csrc/splat.cu",
+        "replaces": SPLAT_REPLACES,
+        # one launch per train step: the timed steps of the train phase
+        "launches": trained["splat_launches"],
+        "max_abs_err": max(splat_main["max_abs_err"], splat_edge["max_abs_err"]),
+        "ms": splat_main["kernel_ms"],
+        "plain_ms": splat_main["plain_ms"],
+        "bound_ms": splat_main["bound_ms"],
+        "bound_by": splat_main["bound_by"],
         "library_ms": None,
     }]}), flush=True)
     print(smi, flush=True)

@@ -115,7 +115,12 @@ class Tree(nn.Module):
             return self.root(x2, x1, *children)
         # above level 1 the projected residual is dead: tree1 is a Tree and
         # computes its own (the reference and the JAX package compute and
-        # drop it; the weights stay, so checkpoints load unchanged)
+        # drop it; the weights stay, so checkpoints load unchanged). In train
+        # mode its BN still folds the batch into its running statistics
+        # there, so it runs for that alone, without a graph.
+        if self.training and self.project is not None:
+            with torch.no_grad():
+                self.project(bottom)
         x1 = self.tree1(x)
         children.append(x1)
         return self.tree2(x1, children=children)

@@ -12,11 +12,28 @@ transposed-conv kernels U(+-sqrt(3/(out*k*k))) with the bilinear fill of
 output channel 0 only; BatchNorm eps 1e-4, momentum 0.03. ``init_weights``
 applies it from a ``torch.Generator``.
 
-Not ported, because none of it is on the inference path: the space-to-depth
-stem (train-only in the JAX package), the phase-decomposed upsample (off by
-default there), ``stop_bias_grad`` and the ``_upsample2x`` custom VJP (both
-training-gradient tricks). The port runs the plain convolution each of them
-reparameterises.
+Training semantics carried over from the JAX package:
+- ``stop_bias_grad`` (``rtm3d_tpu/nn/layers.py:93-117``, switched on for
+  every conv of a ``ConvBNReLU`` in train mode at ``:173``; the header's
+  fused first conv does the same, ``header.py:100-102``) is semantics, not
+  a layout trick: a conv bias that feeds train-mode BatchNorm gets a
+  gradient of exactly 0 there, so with coupled weight decay its update is
+  driven by ``wd * p`` alone. In PyTorch the same gradient is 0 only up to
+  rounding noise, which Adamax (dividing by ``|g| + eps``) would turn into
+  lr-sized steps. So a ``Conv`` built with ``stop_bias_grad`` uses
+  ``bias.detach()`` in train mode; the train step fills such gradients
+  with exact zeros. In the DLA-34 model these are the header's
+  ``ConvLevel`` convs, the only ones with ``bias=True`` before a BN.
+- BN running variance: flax folds the *biased* batch variance into
+  ``running_var`` (``ra = m*ra + (1-m)*var``), where ``nn.BatchNorm2d``
+  folds the unbiased one (a factor n/(n-1)). ``BatchNorm`` corrects
+  torch's update so the running statistics follow flax's. Normalisation
+  itself uses the biased variance in both.
+
+Not ported, being exact reparameterisations of the plain convolution the
+port runs: the space-to-depth stem (train-only in the JAX package), the
+phase-decomposed upsample (off by default there) and the ``_upsample2x``
+custom VJP.
 """
 
 from __future__ import annotations
@@ -25,6 +42,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-4
@@ -32,7 +50,9 @@ BN_MOMENTUM = 0.03  # torch convention; flax momentum 0.97
 
 
 class Conv(nn.Conv2d):
-    """2D conv with torch-style symmetric padding ``dilation*(k-1)//2``."""
+    """2D conv with torch-style symmetric padding ``dilation*(k-1)//2``.
+    ``stop_bias_grad``: in train mode the bias gets no gradient (it feeds
+    BatchNorm; see the module docstring)."""
 
     def __init__(
         self,
@@ -43,6 +63,7 @@ class Conv(nn.Conv2d):
         dilation: int = 1,
         bias: bool = False,
         padding: int | None = None,
+        stop_bias_grad: bool = False,
     ):
         if padding is None:
             padding = dilation * (kernel_size - 1) // 2
@@ -50,6 +71,12 @@ class Conv(nn.Conv2d):
             in_channels, out_channels, kernel_size, stride, padding,
             dilation=dilation, bias=bias,
         )
+        self.stop_bias_grad = stop_bias_grad
+
+    def forward(self, x):
+        if self.training and self.stop_bias_grad and self.bias is not None:
+            return self._conv_forward(x, self.weight, self.bias.detach())
+        return super().forward(x)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -63,14 +90,34 @@ class Conv(nn.Conv2d):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm with the reference's eps/momentum (torch_utils.py:79-81)."""
+    """BatchNorm with the reference's eps/momentum (torch_utils.py:79-81);
+    in train mode ``running_var`` follows the biased batch variance, as
+    flax's does."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
 
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        n = x.numel() // x.shape[1]
+        # torch folds the unbiased batch variance into the copy it is given
+        # (autograd saves that copy, so it is not touched again):
+        #   torch = (1-m) old + m var n/(n-1);  flax = (1-m) old + m var
+        #   flax = torch (n-1)/n + (1-m) old / n
+        folded = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, folded, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_var.copy_(folded * ((n - 1) / n) + self.running_var * ((1 - self.momentum) / n))
+        return y
+
 
 class ConvBNReLU(nn.Sequential):
-    """conv -> BN -> ReLU as indices 0, 1, 2."""
+    """conv -> BN -> ReLU as indices 0, 1, 2; the conv's bias, if any, takes
+    no gradient in train mode (``stop_bias_grad``)."""
 
     def __init__(
         self,
@@ -82,7 +129,7 @@ class ConvBNReLU(nn.Sequential):
         bias: bool = False,
     ):
         super().__init__(
-            Conv(in_channels, out_channels, kernel_size, stride, dilation, bias),
+            Conv(in_channels, out_channels, kernel_size, stride, dilation, bias, stop_bias_grad=True),
             BatchNorm(out_channels),
             nn.ReLU(inplace=True),
         )

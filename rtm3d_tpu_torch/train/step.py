@@ -1,25 +1,47 @@
-"""The detect step: normalise -> network -> decode -> 3D recovery.
+"""The train, eval-loss and detect steps.
 
-Port of the detect half of ``rtm3d_tpu/train/step.py`` (``normalize_images``
-:35-44, ``attach_3d`` :237-255, ``make_detect_step`` :258-309); reference
-semantics: detect.py:47-88. Training comes with a later slice (ROADMAP.md).
+Port of ``rtm3d_tpu/train/step.py``: ``normalize_images`` (:35-44),
+``_loss_from_batch``, ``make_train_step`` and ``make_eval_loss_step``
+(:95-234), ``attach_3d`` and ``make_detect_step`` (:237-309); reference
+semantics: train.py:61-117 and detect.py:47-88.
 
 Public layouts are the JAX package's: images (B, H, W, 3) uint8 or
-normalised float, K (B, 3, 3), and a dict of fixed (B, K, ...) tensors with
-the same keys as the JAX step. Inside, the network runs channels_last.
+normalised float, a label block of fixed (B, MAX_OBJS, ...) tensors
+(``data/targets.py::LABEL_KEYS``), K (B, 3, 3), and dicts with the JAX
+steps' keys. Inside, the network runs channels_last (NCHW logits).
+
+The train and eval-loss steps build their targets on the device, inside
+the step, with the splat kernel (``ops/splat.py``). Mixed precision
+differs from the JAX step in form: the JAX step casts params and BN
+statistics to ``TPU.COMPUTE_DTYPE`` and re-promotes the new statistics
+(step.py:110-139); the port keeps fp32 masters and runs forward and
+backward under ``torch.autocast(dtype=torch.bfloat16)``. So under bf16
+BatchNorm keeps fp32 weights and running statistics and reduces in fp32,
+and the KFPN softmax runs in fp32 (autocast promotes it), where the JAX
+step ran both in bf16. Parity is held at fp32.
+
+Left out (ROADMAP.md): the device-warp and photometric input modes
+(step.py:47-92), the device dataset cache, ``TPU.REMAT`` (a
+``torch.utils.checkpoint`` re-run of the forward would update the BN
+running statistics a second time, which ``jax.checkpoint`` does not) and
+``TPU.DONATE`` (no meaning in eager PyTorch: the step updates the state in
+place).
 """
 
 from __future__ import annotations
 
 import copy
+import math
 from typing import Callable, Dict
 
 import torch
 from torch import nn
 
 from rtm3d_tpu_torch.config import Config
+from rtm3d_tpu_torch.data.targets import build_targets
 from rtm3d_tpu_torch.decode.peaks import decode_detections
 from rtm3d_tpu_torch.decode.solve3d import solve_bbox3d
+from rtm3d_tpu_torch.losses.rtm3d_loss import rtm3d_loss
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -52,6 +74,148 @@ def normalize_images(imgs: torch.Tensor, cfg: Config) -> torch.Tensor:
         std = torch.tensor(cfg.DATASET.STD, dtype=torch.float32, device=imgs.device)
         return (imgs.float() / 255.0 - mean) / std
     return imgs
+
+
+def _feat_hw(cfg: Config):
+    w, h = int(cfg.INPUT_SIZE[0]), int(cfg.INPUT_SIZE[1])
+    d = int(cfg.MODEL.DOWN_SAMPLE)
+    return h // d, w // d
+
+
+def _to_device(batch: dict, device: torch.device) -> dict:
+    """The batch's arrays and tensors, nested dicts included, on ``device``."""
+    return {
+        k: _to_device(v, device) if isinstance(v, dict) else torch.as_tensor(v).to(device, non_blocking=True)
+        for k, v in batch.items()
+    }
+
+
+def _check_state(state, device: torch.device) -> None:
+    got = state.device
+    if got.type != device.type or (device.index is not None and got.index != device.index):
+        raise ValueError(f"the train state lives on {got}, the step runs on {device}")
+
+
+def _loss_from_batch(net: nn.Module, cfg: Config, batch: dict, sample_mask=None, variables=None):
+    """(loss, aux) of ``net`` on ``batch``, targets built on the device.
+    ``variables``: parameters and buffers to evaluate in place of the
+    module's own (``torch.func.functional_call``)."""
+    targets = build_targets(
+        batch["labels"],
+        _feat_hw(cfg),
+        len(cfg.DATASET.OBJs),
+        down_ratio=float(cfg.MODEL.DOWN_SAMPLE),
+        gaussian_gen_type=cfg.DATASET.GAUSSIAN_GEN_TYPE,
+        bbox_area_max=cfg.DATASET.BBOX_AREA_MAX,
+        bbox_area_min=cfg.DATASET.BBOX_AREA_MIN,
+    )
+    # NHWC -> an NCHW view with channels_last strides: no copy
+    x = normalize_images(batch["image"], cfg).permute(0, 3, 1, 2)
+    dtype = compute_dtype(cfg)
+    with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != torch.float32):
+        logits = net(x) if variables is None else torch.func.functional_call(net, variables, (x,))
+    t = cfg.TRAINING
+    return rtm3d_loss(
+        logits, targets,
+        w_mkf=t.W_MKF, w_vfm=t.W_VFM, w_m_off=t.W_M_OFF, w_v_off=t.W_V_OFF,
+        focal_alpha=cfg.MODEL.FOCAL_LOSS_ALPHA, focal_beta=cfg.MODEL.FOCAL_LOSS_BEDA,
+        sample_mask=sample_mask,
+    )
+
+
+def make_train_step(cfg: Config, device=None) -> Callable:
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``state`` is a ``train.state.TrainState`` on ``device`` (the GPU when
+    None); the step updates it in place and returns it. ``batch``:
+    {'image': (B,H,W,3) uint8 or float, 'labels': {cls, bbox, dim, alpha, ry,
+    loc, K, mask, noise_mask} padded to MAX_OBJS}; arrays on another device
+    are copied to ``device``. metrics: {'loss', 'loss_items' [MKF, VFM,
+    M_OFF, V_OFF, total], 'num_targets'}, tensors on the device (no sync).
+
+    Per call: targets, forward, backward. With ``SOLVER.ACCUMULATE_STEPS``
+    k > 1 the gradients of k calls are summed and, on the k-th call,
+    divided by k and applied (optax ``MultiSteps``: the mean of k
+    gradients; the schedule advances per applied update). Gradients that
+    the forward stops (``stop_bias_grad``) are exact zeros, so coupled weight
+    decay still moves those parameters, as in the JAX package. The
+    gradients of the last update stay in ``p.grad`` until the next call.
+    The EMA shadow, when tracked, moves on every call by
+    ``d = EMA_DECAY * (1 - exp(-(step + 1) / 2000))`` (module.py:94).
+    """
+    device = resolve_device(device)
+    compute_dtype(cfg)  # validate before the first step
+    decay = float(cfg.TRAINING.get("EMA_DECAY", 0.9999))
+
+    def train_step(state, batch):
+        _check_state(state, device)
+        net, opt, k = state.model, state.optimizer, state.accumulate_steps
+        net.train()
+        batch = _to_device(batch, device)
+        if state.step % k == 0:
+            opt.zero_grad(set_to_none=True)
+        loss, aux = _loss_from_batch(net, cfg, batch)
+        loss.backward()
+        if (state.step + 1) % k == 0:
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                    elif k > 1:
+                        p.grad.div_(k)
+            lr = state.schedule(state.updates)  # update t uses the schedule at t
+            for group in opt.param_groups:
+                group["lr"] = group["lr_factor"] * lr
+            opt.step()
+            state.updates += 1
+        if state.ema is not None:
+            d = decay * (1.0 - math.exp(-(state.step + 1) / 2000.0))
+            params = dict(net.named_parameters())
+            with torch.no_grad():
+                shadow = list(state.ema.values())
+                torch._foreach_mul_(shadow, d)
+                torch._foreach_add_(shadow, [params[n].detach() for n in state.ema], alpha=1.0 - d)
+        state.step += 1
+        metrics = {
+            "loss": loss.detach(),
+            "loss_items": aux,
+            "num_targets": batch["labels"]["mask"].sum(),
+        }
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_loss_step(cfg: Config, device=None) -> Callable:
+    """Returns ``eval_step(state, batch, num_valid=None) -> {'loss', 'loss_items'}``:
+    the eval-mode loss (reference test_epoch, train.py:61-81) on the EMA
+    shadow when one is tracked (check_point.py:122), BN on its running
+    statistics. Rows where ``batch['sample_valid']`` is False, or rows
+    ``>= num_valid``, are left out of every sum and count, so a padded
+    final batch scores as its valid rows alone."""
+    device = resolve_device(device)
+    compute_dtype(cfg)
+
+    def eval_step(state, batch, num_valid=None):
+        _check_state(state, device)
+        batch = _to_device(batch, device)
+        sample_mask = batch.get("sample_valid")
+        if sample_mask is not None:
+            sample_mask = sample_mask.bool()
+        if num_valid is not None:
+            B = batch["labels"]["mask"].shape[0]
+            sample_mask = torch.arange(B, device=device) < int(num_valid)
+        net = state.model
+        was_training = net.training
+        net.eval()
+        try:
+            with torch.no_grad():
+                loss, aux = _loss_from_batch(net, cfg, batch, sample_mask, state.eval_variables())
+        finally:
+            net.train(was_training)
+        return {"loss": loss, "loss_items": aux}
+
+    return eval_step
 
 
 def attach_3d(det: Dict[str, torch.Tensor], K: torch.Tensor, cfg: Config) -> Dict[str, torch.Tensor]:

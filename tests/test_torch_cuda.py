@@ -1,5 +1,7 @@
-"""Tests of the port that need the card: the LM kernel against its plain
-version, and the detect step on the GPU against the CPU.
+"""Tests of the port that need the card: the LM and splat kernels against
+their plain versions, and the detect and train steps on the GPU against the
+CPU; plus, on the CPU, that the entry points refuse to run without a GPU
+unless asked for the CPU.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed. On a machine with a CUDA device, from the repository
@@ -7,7 +9,7 @@ root (``--noconftest`` skips tests/conftest.py, which imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Without a device every test skips with its reason.
+Without a device every ``cuda``-marked test skips with its reason.
 """
 
 import numpy as np
@@ -18,16 +20,17 @@ from rtm3d_tpu_torch.config import default_config
 from rtm3d_tpu_torch.decode.solve3d import COR, solve_bbox3d
 from rtm3d_tpu_torch.nn.model import create_model
 from rtm3d_tpu_torch.ops.lm_solver import lm_solve, lm_solve_reference
-from rtm3d_tpu_torch.train.step import make_detect_step
+from rtm3d_tpu_torch.ops.splat import splat_heatmap, splat_heatmap_reference
+from rtm3d_tpu_torch.train.state import TrainState
+from rtm3d_tpu_torch.train.step import make_detect_step, make_eval_loss_step, make_train_step
 
-pytestmark = pytest.mark.cuda
 K_KITTI = np.array([[721.5, 0, 609.6], [0, 721.5, 172.9], [0, 0, 1.0]], np.float32)
 
 
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the LM kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
@@ -49,6 +52,7 @@ def lanes(rng, M, noise):
     return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda() for a in (uv, x0, kp)]
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("prior_weight", [0.0, 20.0])
 def test_lm_kernel_matches_reference(cuda, prior_weight):
     n = 2000
@@ -78,6 +82,7 @@ def test_lm_kernel_matches_reference(cuda, prior_weight):
     assert (np.abs(ck - cr)[both] <= 1e-3).mean() >= 0.999
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("M", [1, 127, 129, 300])
 def test_lm_kernel_ragged_edge(cuda, M):
     """No pad lanes: every M works, and lane i's answer does not depend on
@@ -89,6 +94,7 @@ def test_lm_kernel_ragged_edge(cuda, M):
     assert torch.equal(x, x_all[:, :M]) and torch.equal(c, c_all[:, :M])
 
 
+@pytest.mark.cuda
 def test_lm_kernel_refuses_what_it_cannot_take(cuda):
     uv, x0, kp = lanes(np.random.RandomState(7), 64, noise=0.1)
     with pytest.raises(ValueError):
@@ -102,6 +108,7 @@ def test_lm_kernel_refuses_what_it_cannot_take(cuda):
     assert x.shape == (8, 0) and c.shape == (1, 0) and lm_solve.launches == before
 
 
+@pytest.mark.cuda
 def test_solve_bbox3d_on_gpu_matches_cpu(cuda):
     rng = np.random.RandomState(8)
     uv, _, _ = lanes(rng, 64, noise=0.03)
@@ -120,6 +127,7 @@ def test_solve_bbox3d_on_gpu_matches_cpu(cuda):
     np.testing.assert_allclose(got["loc"].cpu()[both], ref["loc"][both], atol=0.05)
 
 
+@pytest.mark.cuda
 def test_detect_step_gpu_matches_cpu(cuda):
     cfg = default_config()
     cfg.DETECTOR.TOPK_CANDIDATES = 10
@@ -137,3 +145,93 @@ def test_detect_step_gpu_matches_cpu(cuda):
     torch.testing.assert_close(got["scores"].cpu(), ref["scores"], atol=1e-4, rtol=1e-4)
     assert torch.equal(got["cls"].cpu(), ref["cls"]) and torch.equal(got["valid"].cpu(), ref["valid"])
     torch.testing.assert_close(got["v_proj"].cpu(), ref["v_proj"], atol=1e-2, rtol=1e-4)
+
+
+def splat_inputs(rng, B, N, H, W, C=3, device="cuda"):
+    """tests/test_pallas_ops.py:11-20's generator at any size: centers in
+    [-4, W+4), a quarter of the slots masked out, noise slots."""
+    m_proj = np.stack([rng.randint(-4, W + 4, (B, N)), rng.randint(-4, H + 4, (B, N))], -1)
+    sigma = rng.rand(B, N) * 4 + 0.5
+    mask = rng.rand(B, N) > 0.25
+    arrays = (m_proj.astype(np.int32), rng.randint(0, C, (B, N)).astype(np.int32),
+              sigma.astype(np.float32), np.ceil(sigma * 3).astype(np.float32), mask,
+              (rng.rand(B, N) > 0.7) & mask)
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 32, 40), (32, 64, 96, 320), (3, 70, 17, 33)])
+def test_splat_kernel_matches_reference(cuda, shape):
+    """Exact but for the ulp of expf: max |d| <= 1e-6, and the pixels equal
+    to 1.0 (the focal loss's positives) identical. (3, 70, 17, 33): more
+    slots than one staged chunk, a ragged tile edge."""
+    B, N, H, W = shape
+    args = splat_inputs(np.random.RandomState(sum(shape)), B, N, H, W)
+    before = splat_heatmap.launches
+    got = splat_heatmap(*args, (H, W), 3)
+    torch.cuda.synchronize()
+    assert splat_heatmap.launches == before + 1 and got.shape == (B, 3, H, W)
+    ref = splat_heatmap_reference(*args, (H, W), 3)
+    assert (got - ref).abs().max().item() <= 1e-6
+    assert torch.equal(got == 1.0, ref == 1.0)
+    assert torch.equal(got, splat_heatmap(*args, (H, W), 3))  # deterministic
+
+
+@pytest.mark.cuda
+def test_splat_kernel_refuses_what_it_cannot_take(cuda):
+    args = splat_inputs(np.random.RandomState(1), 2, 8, 16, 16)
+    with pytest.raises(ValueError):
+        splat_heatmap(args[0].long(), *args[1:], (16, 16), 3)
+    with pytest.raises(ValueError):
+        splat_heatmap(*args[:2], args[2].cpu(), *args[3:], (16, 16), 3)
+    with pytest.raises(ValueError):
+        splat_heatmap(*args, (16, 16), 9)  # more classes than the kernel holds
+
+
+@pytest.mark.cuda
+def test_train_step_gpu_matches_cpu(cuda):
+    cfg = default_config()
+    cfg.INPUT_SIZE = (96, 64)
+    cfg.DATASET.MAX_OBJS = 8
+    model = create_model(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(2)
+    B, N = 2, 8
+    x1, y1 = rng.rand(B, N) * 70, rng.rand(B, N) * 44
+    labels = {
+        "cls": rng.randint(0, 3, (B, N)).astype(np.int32),
+        "bbox": np.stack([x1, y1, x1 + 22, y1 + 16], -1).astype(np.float32),
+        "dim": (rng.rand(B, N, 3) + 0.8).astype(np.float32), "alpha": np.zeros((B, N), np.float32),
+        "ry": rng.uniform(-3, 3, (B, N)).astype(np.float32),
+        "loc": np.stack([rng.randn(B, N), rng.randn(B, N) * 0.2 + 1, rng.rand(B, N) * 20 + 8], -1).astype(np.float32),
+        "K": np.tile(np.array([60.0, 0, 48, 0, 60.0, 32, 0, 0, 1], np.float32), (B, N, 1)),
+        "mask": rng.rand(B, N) > 0.2, "noise_mask": rng.rand(B, N) > 0.9,
+    }
+    batch = {"image": (rng.rand(B, 64, 96, 3) * 255).astype(np.uint8), "labels": labels}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = TrainState.create(model, cfg, device=dev, with_ema=True)
+        before = splat_heatmap.launches
+        state, m = make_train_step(cfg, device=dev)(state, batch)
+        ev = make_eval_loss_step(cfg, device=dev)(state, batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert splat_heatmap.launches == before + 2  # the train step and the eval step
+        out[dev] = (m["loss_items"].cpu(), ev["loss_items"].cpu(),
+                    torch.cat([p.grad.flatten().cpu() for p in state.model.parameters()]))
+    (ag, eg, gg), (ac, ec, gc) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(ag, ac, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(eg, ec, rtol=1e-3, atol=1e-6)  # after an update of Adamax's sign steps
+    # float32 noise: this network's gradient at random init is noisy at the
+    # 1% level (chip_smoke.py's train_fp32 phase)
+    assert ((gg - gc).norm() / gc.norm()).item() <= 5e-2
+
+
+def test_train_entry_points_raise_without_gpu(monkeypatch):
+    cfg = default_config()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (make_train_step, make_eval_loss_step):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(cfg)
+        assert callable(make(cfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainState.create(create_model(cfg), cfg)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``rtm3d_tpu_torch`` nor
 ``chip_smoke.py`` imports JAX, flax, optax or the JAX package, and a process
-that imports the port and runs it never loads JAX."""
+that imports the port and runs it (a detect call and a train step) never
+loads JAX."""
 
 import ast
 import os
@@ -49,6 +50,16 @@ def test_port_runs_without_loading_jax(tmp_path):
         "K = np.tile(np.array([[30., 0, 16], [0, 30, 16], [0, 0, 1]], np.float32), (1, 1, 1))\n"
         "out = det(np.zeros((1, 32, 32, 3), np.uint8), K)\n"
         "assert out['scores'].shape == (1, 4)\n"
+        "from rtm3d_tpu_torch.train.state import TrainState\n"
+        "from rtm3d_tpu_torch.train.step import make_train_step\n"
+        "cfg.INPUT_SIZE = (64, 64); cfg.DATASET.MAX_OBJS = 2\n"
+        "labels = dict(cls=np.zeros((1, 2), np.int32), bbox=np.array([[[8., 8., 40., 32.], [0., 0., 16., 16.]]], np.float32),\n"
+        "              dim=np.ones((1, 2, 3), np.float32), alpha=np.zeros((1, 2), np.float32), ry=np.zeros((1, 2), np.float32),\n"
+        "              loc=np.array([[[0., 1., 10.], [1., 1., 12.]]], np.float32), K=np.tile(np.array([30., 0, 16, 0, 30, 16, 0, 0, 1], np.float32), (1, 2, 1)),\n"
+        "              mask=np.array([[True, False]]), noise_mask=np.zeros((1, 2), bool))\n"
+        "state = TrainState.create(create_model(cfg), cfg, device='cpu')\n"
+        "state, m = make_train_step(cfg, device='cpu')(state, {'image': np.full((1, 64, 64, 3), 7, np.uint8), 'labels': labels})\n"
+        "assert state.step == 1 and bool(m['loss'].isfinite())\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in %r)\n"
         "assert not bad, bad\n"
