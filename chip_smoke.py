@@ -2,16 +2,20 @@
 """Drive the PyTorch/CUDA port (rtm3d_tpu_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py    # from the repository root
+    python3 chip_smoke.py --kernel-ab DIR [--check-only] [--out FILE]
 
-Phases, one JSON line each; any failure exits non-zero:
+With no arguments it drives the port's main paths and checks them, in
+phases of one JSON line each; any failure exits non-zero:
   device   the card (nvidia-smi name and power limit), torch and CUDA versions;
-  build    compiles rtm3d_tpu_torch/csrc/*.cu (nvcc, one process per source);
+  build    compiles rtm3d_tpu_torch/csrc/*.cu (nvcc, one process per source)
+           and fails if ptxas reports a spill store or load in any kernel;
   lm_*     the LM kernel against its plain PyTorch version on the card at
            the detect path's lane counts (M = 25,600 and 38,400 for batch
            128 x top-K 100, the second call's third init being the first
            call's solution), accept-mask agreement >= 99.9% and, where both
            accept, cost within 1e-3 on >= 99.9% (per lane at the prior, per
-           detection without it), CUDA-event times and the fp32 bound;
+           detection without it), CUDA-event times and the fp32 bound, the
+           launch geometry (threads per detection, block size, blocks);
   logits   full-width DLA-34 1280x384 fp32 forward, port on the GPU against
            the port on the CPU (TF32 off), max |d| <= 1e-4 of max |logit|;
   serve    DLA-34 1280x384 batch 128 bf16 detect through Detector, distinct
@@ -24,7 +28,8 @@ Phases, one JSON line each; any failure exits non-zero:
            build_targets makes from the train batch) and on an edge batch
            (centers off the map, R = 0, an all-masked image, noise slots, two
            classes on one center): max |d| <= 1e-6 and the same pixels equal
-           to 1.0; CUDA-event times, bytes, operations and the bound;
+           to 1.0; CUDA-event times, bytes, operations and the bound, the
+           mean live slots per tile;
   train_fp32  DLA-34 384x128 batch 2 fp32 (TF32 off), one make_train_step on
            the GPU against the same step on the CPU, same seed-0 weights and
            batch: loss and aux within 1e-4 relative, gradients within
@@ -45,12 +50,30 @@ Phases, one JSON line each; any failure exits non-zero:
 Then the seconds of each phase, the kernels line, the nvidia-smi line and,
 last, {"ok": true, ...}. Needs one CUDA device; without one it exits
 non-zero and prints no result.
+
+With --kernel-ab it compares the CUDA kernels of another version of the
+port with this one's instead, on the same card: DIR holds that version's
+``rtm3d_tpu_torch`` package (from PR 2 on; for example ``git archive <rev>
+rtm3d_tpu_torch | tar -x -C DIR``). Each version runs in a process of its
+own that imports its package and goes through its public wrappers
+(``lm_solve``, ``splat_heatmap``), in turns old, new, new, old: ptxas's
+registers and spills, agreement with the plain versions as above, the LM
+at M = 25,600 (prior 20) and 38,400 (prior 0) with CUDA events, the splat
+at B 32, N 64, C 3, 96x320 with torch.profiler device time (and, to show
+where its time goes, with every slot masked out, beside a PyTorch fill of
+the same output). Then the SASS of each LM kernel's iteration loop by
+opcode (cuobjdump, where the toolkit has it). --check-only runs each
+version once, untimed. A line per record; all of them go to FILE
+(chip_smoke_out/kernel_ab.json).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -59,88 +82,22 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-H, W = 384, 1280
-BATCH, TOPK, ITERS = 128, 100, 40
+from rtm3d_tpu_torch.utils.measure import (
+    BATCH, FRAME_H, FRAME_W, ITERS, K_KITTI, PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS, TOPK,
+    TRAIN_BATCH, TRAIN_OBJS, cuda_time_ms, kernel_device_ms, lm_agreement, nvidia_smi,
+    splat_edge_inputs, synthetic_labels, synthetic_lanes,
+)
+
+H, W = FRAME_H, FRAME_W
 SERVE_CALLS = 6
-K_KITTI = np.array([[721.5, 0, 609.6], [0, 721.5, 172.9], [0, 0, 1.0]], np.float32)
-# H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 on the CUDA cores, HBM3,
-# bf16 on the tensor cores
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 LM_REPLACES = "rtm3d_tpu/ops/lm_solver.py:35"
 SPLAT_REPLACES = "rtm3d_tpu/ops/splat.py:26"
-TRAIN_BATCH, TRAIN_OBJS, TRAIN_WARMUP, TRAIN_TIMED, LOSS_FALL_STEPS = 32, 64, 3, 10, 20
+TRAIN_WARMUP, TRAIN_TIMED, LOSS_FALL_STEPS = 3, 10, 20
+AB_LM_REPS, AB_SPLAT_REPS = 20, 100
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds of ``fn()`` on the current stream, CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def kernel_device_ms(fn, reps: int, kernel: str) -> float:
-    """Mean device milliseconds of the kernels whose name holds ``kernel``
-    over ``reps`` calls of ``fn()``, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel in e.key and e.self_device_time_total > 0]
-    if not rows:
-        raise AssertionError(f"the profiler saw no {kernel} launch")
-    return sum(e.self_device_time_total for e in rows) / sum(e.count for e in rows) / 1e3
-
-
-def synthetic_lanes(rng, n_det: int, dim_ref):
-    """KITTI-like boxes projected through K_KITTI with per-box pixel noise
-    that straddles the acceptance threshold, laid out as the LM kernel takes
-    them for three inits (cos +1, cos -1, a random yaw): uv (16, 3n),
-    x0 (8, 3n), kp (4, 3n)."""
-    cor = np.array(
-        [(i, j, k) for i in (1, -1) for j in (1, -1) for k in (1, -1)], np.float32
-    ).T * 0.5
-    cls = rng.randint(0, 3, n_det)
-    d = dim_ref[cls] * rng.uniform(0.9, 1.1, (n_det, 3))  # h, w, l
-    ry = rng.uniform(-np.pi, np.pi, n_det)[:, None]
-    loc = np.stack(
-        [rng.uniform(-15, 15, n_det), rng.uniform(0.5, 2.0, n_det), rng.uniform(6, 60, n_det)], -1
-    )
-    xc = cor[0] * d[:, 2:3] * np.cos(ry) + cor[2] * d[:, 1:2] * np.sin(ry) + loc[:, 0:1]
-    yc = cor[1] * d[:, 0:1] + loc[:, 1:2]
-    zc = -cor[0] * d[:, 2:3] * np.sin(ry) + cor[2] * d[:, 1:2] * np.cos(ry) + loc[:, 2:3]
-    u = K_KITTI[0, 0] * xc / zc + K_KITTI[0, 2]
-    v = K_KITTI[1, 1] * yc / zc + K_KITTI[1, 2]
-    uv = np.concatenate([u.T, v.T], 0)  # (16, n)
-    uv += rng.randn(*uv.shape) * rng.uniform(0.01, 0.2, n_det)
-    prior = dim_ref[cls]
-    yaw0 = rng.uniform(-np.pi, np.pi, n_det)
-    inits = []
-    for s, c in ((0.0, 1.0), (0.0, -1.0), (np.sin(yaw0), np.cos(yaw0))):
-        x0 = np.zeros((8, n_det))
-        x0[0], x0[1] = s, c
-        x0[2], x0[3], x0[4] = prior[:, 2], prior[:, 0], prior[:, 1]  # l, h, w
-        x0[5:8] = np.array([0.0, -0.5, 20.0])[:, None]
-        inits.append(x0)
-    kp = np.tile(np.array([K_KITTI[0, 0], K_KITTI[1, 1], K_KITTI[0, 2], K_KITTI[1, 2]])[:, None], (1, n_det))
-    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
-    return f32(np.tile(uv, (1, 3))), f32(np.concatenate(inits, 1)), f32(np.tile(kp, (1, 3)))
 
 
 def lm_phase(lm, uv, x0, kp, n_det: int, prior_weight: float) -> dict:
@@ -154,22 +111,18 @@ def lm_phase(lm, uv, x0, kp, n_det: int, prior_weight: float) -> dict:
     if not (np.isfinite(ck).all() and np.isfinite(xk.cpu().numpy()).all()):
         raise AssertionError(f"LM kernel: non-finite output at M={m}")
 
-    def agreement(a, b):
-        both = (a < 0.1) & (b < 0.1)
-        diff = np.abs(a - b)[both]
-        return (float(((a < 0.1) == (b < 0.1)).mean()),
-                float((diff <= 1e-3).mean()) if both.any() else 1.0,
-                float(diff.max()) if both.any() else 0.0)
-
-    lane = agreement(ck, cr)
+    lane = lm_agreement(ck, cr)
     # what the detect path gates on: per detection, the least cost over its inits
-    det = agreement(ck.reshape(-1, n_det).min(0), cr.reshape(-1, n_det).min(0))
+    det = lm_agreement(ck.reshape(-1, n_det).min(0), cr.reshape(-1, n_det).min(0))
     kernel_ms = cuda_time_ms(lambda: lm.lm_solve(uv, x0, kp, iters=ITERS, prior_weight=prior_weight), 20, 2)
     plain_ms = cuda_time_ms(lambda: lm.lm_solve_reference(uv, x0, kp, iters=ITERS, prior_weight=prior_weight), 3)
     flops, nbytes = lm.lm_flops(m, ITERS, prior_weight), lm.lm_bytes(m)
     bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    blocks, threads = lm.lm_launch_geometry(m, torch.cuda.get_device_properties(0).multi_processor_count)
     rec = {
         "M": m, "detections": n_det, "prior_weight": prior_weight,
+        "lanes_per_detection": 1,  # the kernel's design: one thread per detection
+        "block_threads": threads, "blocks": blocks,
         "lane_accept_agreement": lane[0], "lane_cost_within_1e-3": lane[1],
         "lane_max_abs_cost_diff_accepted": lane[2],
         "detection_accept_agreement": det[0], "detection_cost_within_1e-3": det[1],
@@ -317,54 +270,6 @@ def profile_calls(phase: str, call, calls: int, path: str) -> dict:
     return rec
 
 
-def synthetic_labels(rng, B: int, N: int, scale: float = 1.0) -> dict:
-    """Label blocks as tools/bench_train.py:31-60 makes them at 1280x384 (90x55
-    px boxes, a KITTI K), scaled by ``scale``, with about a quarter of the
-    slots masked out and a tenth of the live ones flagged as noise."""
-    w, h = W * scale, H * scale
-    x1 = rng.rand(B, N) * (w - 100 * scale)
-    y1 = rng.rand(B, N) * (h - 60 * scale)
-    K = np.array([721.5, 0, 609.6, 0, 721.5, 172.9, 0, 0, 1], np.float32)
-    K[:6] *= scale
-    mask = rng.rand(B, N) > 0.25
-    return {
-        "cls": torch.from_numpy(rng.randint(0, 3, (B, N)).astype(np.int32)),
-        "bbox": torch.from_numpy(np.stack([x1, y1, x1 + 90 * scale, y1 + 55 * scale], -1).astype(np.float32)),
-        "dim": torch.from_numpy((rng.rand(B, N, 3) + 0.8).astype(np.float32)),
-        "alpha": torch.zeros((B, N)),
-        "ry": torch.from_numpy(rng.uniform(-3, 3, (B, N)).astype(np.float32)),
-        "loc": torch.from_numpy(np.stack(
-            [rng.randn(B, N) * 5, rng.randn(B, N) * 0.3 + 1.2, rng.rand(B, N) * 40 + 6], -1).astype(np.float32)),
-        "K": torch.from_numpy(np.tile(K, (B, N, 1))),
-        "mask": torch.from_numpy(mask),
-        "noise_mask": torch.from_numpy(mask & (rng.rand(B, N) < 0.1)),
-    }
-
-
-def splat_edge_inputs(B: int, N: int, feat_hw):
-    """Edge cases at the training map size: image 0 all masked; image 1
-    centers off the map whose windows reach in; image 2 R = 0 slots, half of
-    them noise; image 3 two classes on the same centers, one noise."""
-    Hf, Wf = feat_hw
-    rng = np.random.RandomState(11)
-    m_proj = np.stack([rng.randint(0, Wf, (B, N)), rng.randint(0, Hf, (B, N))], -1)
-    sigma = rng.rand(B, N) * 4 + 0.5
-    radius = np.ceil(sigma * 3)
-    cls = rng.randint(0, 3, (B, N))
-    mask = np.ones((B, N), bool)
-    noise = np.zeros((B, N), bool)
-    mask[0] = False
-    m_proj[1, :, 0] = np.where(np.arange(N) % 2 == 0, -rng.randint(1, 8, N), Wf + rng.randint(0, 8, N))
-    radius[2] = 0.0
-    noise[2, ::2] = True
-    m_proj[3, 1::2] = m_proj[3, ::2]
-    cls[3, ::2], cls[3, 1::2] = 0, 1
-    noise[3, 1::4] = True
-    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
-        m_proj.astype(np.int32), cls.astype(np.int32), sigma.astype(np.float32),
-        radius.astype(np.float32), mask, noise)]
-
-
 def splat_phase(splat, inputs, feat_hw, num_classes: int, name: str) -> dict:
     """Kernel against plain version on the same inputs: max |d| <= 1e-6 and
     the same set of pixels equal to 1.0 (what the focal loss counts)."""
@@ -383,8 +288,11 @@ def splat_phase(splat, inputs, feat_hw, num_classes: int, name: str) -> dict:
     nbytes = splat.splat_bytes(B, N, feat_hw, num_classes)
     flops = splat.splat_flops(inputs[0], inputs[3], inputs[4], feat_hw)
     bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    tile = splat.splat_tile_shape()
+    live = splat.splat_live_slots(inputs[0], inputs[3], inputs[4], feat_hw, tile).float()
     rec = {
         "shape": [B, N, num_classes, *feat_hw], "max_abs_err": err, "ones_equal": ones_equal,
+        "tile": list(tile), "tiles": live.numel(), "mean_live_slots_per_tile": live.mean().item(),
         "ones": int((ref == 1.0).sum().item()), "nonzero_frac": float((ref > 0).float().mean().item()),
         "kernel_ms": kernel_ms, "kernel_us": kernel_ms * 1e3, "call_ms": call_ms, "plain_ms": plain_ms,
         "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
@@ -517,11 +425,179 @@ def train_phase(nn_model, step_mod, state_mod, load_config, lm, splat) -> dict:
     return rec
 
 
+def ptxas_lines(log: str) -> list:
+    """ptxas's resource lines (registers, spills) from an nvcc -Xptxas -v log."""
+    return [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
+
+
+def ab_worker(root: str, timed: bool) -> None:
+    """One turn of --kernel-ab: the kernels of the ``rtm3d_tpu_torch`` package
+    under ``root``, built, checked against their plain versions at the main
+    paths' shapes and, if ``timed``, timed; one JSON line."""
+    # this script's own package came in with the shared helpers; the turn
+    # imports the version under test in its place
+    for name in [k for k in sys.modules if k.split(".")[0] == "rtm3d_tpu_torch"]:
+        del sys.modules[name]
+    sys.path.insert(0, os.path.abspath(root))
+    from rtm3d_tpu_torch import default_config
+    from rtm3d_tpu_torch.data.targets import heatmap_inputs
+    from rtm3d_tpu_torch.ops import lm_solver as lm
+    from rtm3d_tpu_torch.ops import splat
+    from rtm3d_tpu_torch.utils import kernel_build
+
+    built = kernel_build.build()
+    rec = {"package": os.path.dirname(os.path.dirname(lm.__file__)),
+           "ptxas": {n: ptxas_lines(b["log"]) for n, b in built.items()},
+           "libraries": {n: str(b["path"]) for n, b in built.items()}, "lm": []}
+    cfg = default_config()
+    n = BATCH * TOPK
+    uv, x0, kp = synthetic_lanes(np.random.RandomState(0), n, np.asarray(cfg.DETECTOR.dim_ref, np.float32))
+    cases = [tuple(t[:, : 2 * n].contiguous() for t in (uv, x0, kp)) + (float(cfg.DETECTOR.DIM_PRIOR_WEIGHT),),
+             (uv, x0, kp, 0.0)]
+    for u, x, k, pw in cases:
+        call = lambda: lm.lm_solve(u, x, k, iters=ITERS, prior_weight=pw)
+        ck = call()[1][0].cpu().numpy()
+        cr = lm.lm_solve_reference(u, x, k, iters=ITERS, prior_weight=pw)[1][0].cpu().numpy()
+        # held as lm_phase holds them: per lane at the prior, per detection without
+        held = lm_agreement(ck, cr) if pw > 0 else lm_agreement(ck.reshape(-1, n).min(0), cr.reshape(-1, n).min(0))
+        entry = {"M": u.shape[1], "prior_weight": pw, "finite": bool(np.isfinite(ck).all()),
+                 "accept_agreement": held[0], "cost_within_1e-3": held[1]}
+        if timed:
+            entry["ms"] = cuda_time_ms(call, AB_LM_REPS, 2)
+        rec["lm"].append(entry)
+    feat_hw = (H // 4, W // 4)
+    labels = {k: v.cuda() for k, v in synthetic_labels(np.random.RandomState(5), TRAIN_BATCH, TRAIN_OBJS).items()}
+    inputs = heatmap_inputs(labels)
+    for name, batch in (("train_shape", inputs), ("edge", splat_edge_inputs(4, TRAIN_OBJS, feat_hw))):
+        got = splat.splat_heatmap(*batch, feat_hw, 3)
+        ref = splat.splat_heatmap_reference(*batch, feat_hw, 3)
+        rec[f"splat_{name}"] = {"max_abs_err": (got - ref).abs().max().item(),
+                                "ones_equal": bool(torch.equal(got == 1.0, ref == 1.0))}
+    if timed:
+        masked_out = list(inputs)
+        masked_out[4] = torch.zeros_like(inputs[4])
+        out = torch.empty((TRAIN_BATCH, 3, *feat_hw), device="cuda")
+        rec["splat_ms"] = kernel_device_ms(lambda: splat.splat_heatmap(*inputs, feat_hw, 3), AB_SPLAT_REPS,
+                                           "splat_kernel")
+        rec["splat_no_live_slot_ms"] = kernel_device_ms(lambda: splat.splat_heatmap(*masked_out, feat_hw, 3),
+                                                        AB_SPLAT_REPS, "splat_kernel")
+        rec["fill_ms"] = kernel_device_ms(lambda: out.fill_(0.5), AB_SPLAT_REPS, "elementwise")
+    print(json.dumps(rec), flush=True)
+
+
+def sass_loop_counts(lib: str, kernel: str) -> dict:
+    """Per function whose name holds ``kernel``: its SASS instruction count
+    and, over the span of its widest backward branch (the iteration loop),
+    the count by opcode."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return {"cuobjdump": "not found"}
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", line)
+        if name and m:
+            funcs[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for fn, ins in funcs.items():
+        if kernel not in fn:
+            continue
+        loops = []
+        for addr, op, rest in ins:
+            t = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and t and int(t.group(1), 16) < addr:
+                loops.append((int(t.group(1), 16), addr))
+        rec = {"instructions": len(ins)}
+        if loops:
+            lo, hi = max(loops, key=lambda span: span[1] - span[0])
+            by_op = {}
+            for addr, op, _ in ins:
+                if lo <= addr <= hi:
+                    by_op[op.split(".")[0]] = by_op.get(op.split(".")[0], 0) + 1
+            rec["loop_instructions"] = sum(by_op.values())
+            rec["loop_by_opcode"] = dict(sorted(by_op.items(), key=lambda kv: -kv[1]))
+        out[fn] = rec
+    return out
+
+
+def kernel_ab(old_root: str, check_only: bool, out_path: str) -> int:
+    """--kernel-ab: the package under ``old_root`` against this one, each
+    turn in a process of its own; fails if either version fails a gate."""
+    from rtm3d_tpu_torch.ops import lm_solver as lm
+    from rtm3d_tpu_torch.ops import splat
+
+    roots = {"old": old_root, "new": os.path.dirname(os.path.abspath(__file__))}
+    records, runs = [], {"old": [], "new": []}
+
+    def record(kind, **fields):
+        records.append({"record": kind, **fields})
+        print(json.dumps(records[-1]), flush=True)
+
+    smi = nvidia_smi()
+    record("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    for tag in ("old", "new") if check_only else ("old", "new", "new", "old"):
+        cmd = [sys.executable, os.path.abspath(__file__), "--ab-worker", roots[tag]] + ([] if check_only else ["--timed"])
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            raise RuntimeError(f"kernel-ab: the {tag} turn exited {proc.returncode}")
+        runs[tag].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        record("turn", version=tag, **runs[tag][-1])
+    failed = []
+    for tag, turns in runs.items():
+        first = turns[0]
+        record("sass", version=tag, lm_solver=sass_loop_counts(first["libraries"]["lm_solver"], "lm_kernel"))
+        for t in turns:
+            for e in t["lm"]:
+                if not e["finite"] or e["accept_agreement"] < 0.999 or e["cost_within_1e-3"] < 0.999:
+                    failed.append((tag, e))
+            for name in ("splat_train_shape", "splat_edge"):
+                if t[name]["max_abs_err"] > 1e-6 or not t[name]["ones_equal"]:
+                    failed.append((tag, name, t[name]))
+        if check_only:
+            continue
+        lm_ms = [float(np.mean([t["lm"][i]["ms"] for t in turns])) for i in range(2)]
+        lm_bound = [lm.lm_flops(e["M"], ITERS, e["prior_weight"]) / PEAK_FP32_FLOPS * 1e3 for e in first["lm"]]
+        splat_bound = splat.splat_bytes(TRAIN_BATCH, TRAIN_OBJS, (H // 4, W // 4), 3) / PEAK_BYTES * 1e3
+        mean = lambda key: float(np.mean([t[key] for t in turns]))
+        record("times", version=tag, nvidia_smi=smi,
+               lm_ms={e["M"]: ms for e, ms in zip(first["lm"], lm_ms)}, lm_pair_ms=sum(lm_ms),
+               lm_pair_bound_ms=sum(lm_bound), lm_pair_over_bound=sum(lm_ms) / sum(lm_bound),
+               lm_runs_ms=[[e["ms"] for e in t["lm"]] for t in turns],
+               splat_ms=mean("splat_ms"), splat_runs_ms=[t["splat_ms"] for t in turns],
+               splat_bound_ms=splat_bound, splat_over_bound=mean("splat_ms") / splat_bound,
+               splat_no_live_slot_ms=mean("splat_no_live_slot_ms"), fill_ms=mean("fill_ms"))
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(records, f, indent=1)
+    print(smi, flush=True)
+    if failed:
+        print(f"kernel-ab: a version fails its gates: {failed}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Drive the port on one GPU and check it.")
+    ap.add_argument("--kernel-ab", metavar="DIR", help="compare the kernels of the package under DIR with these")
+    ap.add_argument("--check-only", action="store_true", help="with --kernel-ab: each version once, untimed")
+    ap.add_argument("--out", default="chip_smoke_out/kernel_ab.json", help="with --kernel-ab: the records")
+    ap.add_argument("--ab-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--timed", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.ab_worker:
+        ab_worker(args.ab_worker, args.timed)
+        return 0
+    if args.kernel_ab:
+        return kernel_ab(args.kernel_ab, args.check_only, args.out)
     from rtm3d_tpu_torch import default_config, load_config
     from rtm3d_tpu_torch.api import Detector
     from rtm3d_tpu_torch.data.targets import heatmap_inputs
@@ -544,19 +620,21 @@ def main() -> int:
         seconds[name] = round(now - t_phase, 2)
         t_phase = now
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    smi = nvidia_smi()
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
          capability=list(torch.cuda.get_device_capability(0)))
 
     built = kernel_build.build()  # one nvcc per source, all at once
+    ptxas = {n: ptxas_lines(b["log"]) for n, b in built.items()}
+    spills = {n: [l for l in lines if re.search(r"[1-9]\d* bytes spill (stores|loads)", l)]
+              for n, lines in ptxas.items()}
     emit("build", seconds=time.perf_counter() - t_phase,
-         kernels={n: {"seconds": b["seconds"],
-                      "ptxas": [l.strip() for l in b["log"].splitlines() if "registers" in l or "spill" in l]}
-                  for n, b in built.items()})
+         kernels={n: {"seconds": b["seconds"], "ptxas": ptxas[n]} for n, b in built.items()})
+    if not all(any("registers" in l for l in lines) for lines in ptxas.values()):
+        raise AssertionError(f"build: a kernel's ptxas report is missing: {ptxas}")
+    if any(spills.values()):
+        raise AssertionError(f"build: ptxas reports spills: {spills}")
     phase_done("build")
 
     cfg = default_config()

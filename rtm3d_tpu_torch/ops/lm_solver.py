@@ -2,9 +2,10 @@
 
 ``lm_solve`` launches ``csrc/lm_solver.cu``, the hand-written Hopper kernel
 that replaces ``rtm3d_tpu/ops/lm_solver.py::_lm_kernel`` (the Pallas TPU
-kernel): the whole fixed-iteration LM loop, one thread per detection. It is
-bound by fp32 arithmetic (``lm_flops``), not by memory (``lm_bytes``); see
-the source's note for the design.
+kernel): the whole fixed-iteration LM loop, one thread per detection in the
+grid ``lm_launch_geometry`` gives. It is bound by fp32 arithmetic
+(``lm_flops``), not by memory (``lm_bytes``); see the source's note for the
+design.
 
 Layout, as the TPU kernel's: detections along the last axis,
   uv  (16, M)  target pixels (u rows 0..7, v rows 8..15)
@@ -21,6 +22,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import Tuple
 
 import torch
 
@@ -28,34 +31,51 @@ from rtm3d_tpu_torch.decode.solve3d import _lm_batch
 from rtm3d_tpu_torch.utils import kernel_build
 
 # Operations per detection, counted from csrc/lm_solver.cu with add, sub,
-# mul and div as 1 and FMA as 2 (compares, selects and negations as 0).
-_FLOPS_REPROJ = 4 + 8 * 23  # reproj_cost: 4 hoisted products, 23 per corner
-_FLOPS_PRIOR_COST = 3 * 3 + 2  # the prior term of total_cost
-_FLOPS_CORNER = (
-    11  # xc, yc, z
-    + 8  # ru, rv (one divide each)
-    + 5  # 1/z, xc/z, yc/z, fx/z, fy/z
-    + 6  # sign products a*l, b*w, a*c, a*s, b*s, b*c
-    + 13 + 10  # the 13 non-zero Jacobian entries
-    + 2 * 13  # g += J^T r over the 13 non-zero entries
-    + 2 * (21 + 28)  # J^T J: 21 Ju and 28 Jv products on or above the diagonal
+# mul, div and reciprocal as 1 and FMA as 2 (compares, selects, negations and
+# the corners' constant signs as 0).
+_FLOPS_PAIR_PROJECT = (
+    9  # x_c, z: shared by a corner pair
+    + 2  # 1/z, x/z
+    + 2 * (1 + 4 + 4)  # per corner: y/z; ru, rv (one FMA each); ru^2 + rv^2 into the cost
+)
+_FLOPS_PROJECT = 4 + 4 + 4 * _FLOPS_PAIR_PROJECT  # project(): 4 hoisted products, the 2 y_c
+_FLOPS_PRIOR_COST = 3 * 3 + 2  # prior_cost() and its add to the cost
+_FLOPS_PAIR_NORMAL = (
+    8  # ru, rv of both corners from the kept projection
+    + 2 + 3  # fx/z, fy/z; F, Fv, G
+    + 7 + 2 + 2  # Ks; Gvs, Gvd
+    + 2 + 2 + 2 + 6  # Us, Vs, Vd; Qs
+    + 5 + 2 * 22  # the 27 moment sums: 5 plain, 22 weighted
+)
+_FLOPS_ASSEMBLE = (
+    3  # F1/4, G1/4, K1/4
+    + 4 * 8  # c X X^T for X = P, Q, R, S (2 products, 3 FMAs each)
+    + 2 * 10 + 4 * 11  # c (X Y^T + Y X^T) for 6 pairs, 4 of them sharing an entry
+    + 12 * 4  # c (X e_k^T + e_k X^T): 2 FMAs each
+    + 8  # the unit-vector terms
+    + 4 * 3  # g's 4 pose entries
+)
+_FLOPS_SOLVE = (
+    sum(1 + sum(1 + 2 * (8 - row) + 2 for row in range(k + 1, 8)) for k in range(8))  # elimination
+    + 2 * 28 + 8  # back-substitution
 )
 _FLOPS_ITER = (
-    4 + 8 * _FLOPS_CORNER  # normal equations
+    4 * _FLOPS_PAIR_NORMAL + _FLOPS_ASSEMBLE  # normal equations
     + 17  # damping
-    + sum(1 + 15 * (8 - k) for k in range(8))  # Gauss-Jordan, columns > k only
+    + _FLOPS_SOLVE
     + 8  # x - step
-    + _FLOPS_REPROJ  # the cost at the new x
+    + _FLOPS_PROJECT  # the projections and cost at the new x
     + 1  # lambda update
 )
 _FLOPS_ITER_PRIOR = 3 + 3 * 3 + _FLOPS_PRIOR_COST  # the prior in A, g and the cost
+_FLOPS_ONCE = 16 + _FLOPS_PROJECT  # cx - u, cy - v; the projections at x0
 
 
 def lm_flops(m: int, iters: int, prior_weight: float) -> int:
     """fp32 operations of one ``lm_solve`` call on ``m`` detections."""
     prior = prior_weight > 0
     per_iter = _FLOPS_ITER + (_FLOPS_ITER_PRIOR if prior else 0)
-    once = 2 * _FLOPS_REPROJ + (_FLOPS_PRIOR_COST if prior else 0)
+    once = _FLOPS_ONCE + (_FLOPS_PRIOR_COST if prior else 0)
     return m * (iters * per_iter + once)
 
 
@@ -75,12 +95,40 @@ def lm_solve_reference(uv, x0, kp, iters: int = 40, lam0: float = 1e-3, prior_we
     return x.T.contiguous(), cost[None]
 
 
+# Launch geometry. csrc/lm_solver.cu takes blocks of 32 to 256 threads, one
+# thread per detection. An H100 SXM has 132 SMs: the default where no card
+# is asked.
+H100_SMS = 132
+LM_BLOCK_THREADS = tuple(range(32, 257, 32))  # the block sizes tried
+
+
+def busiest_sm_share(blocks: int, sms: int = H100_SMS) -> float:
+    """Blocks on the busiest SM over the mean, for ``blocks`` equal blocks
+    dealt round-robin over ``sms`` SMs."""
+    return math.ceil(blocks / sms) / (blocks / sms)
+
+
+def lm_launch_geometry(m: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """(blocks, threads) of a launch on ``m`` detections, one thread each:
+    the block of ``LM_BLOCK_THREADS`` whose grid puts the least on the
+    busiest of ``sms`` SMs (the smallest block of those that tie)."""
+    m = max(int(m), 1)
+    grids = [(-(-m // t), t) for t in LM_BLOCK_THREADS]
+    return min(grids, key=lambda g: (busiest_sm_share(g[0], sms), g[1]))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = kernel_build.load("lm_solver")
     fn = lib.lm_solve_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib
@@ -109,12 +157,12 @@ def lm_solve(uv, x0, kp, iters: int = 40, lam0: float = 1e-3, prior_weight: floa
     cost = torch.empty((1, M), dtype=torch.float32, device=device)
     if M == 0:
         return x, cost
-    lib = _library()
+    blocks, threads = lm_launch_geometry(M, _sm_count(device.index))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.lm_solve_launch(
+        err = _library().lm_solve_launch(
             uv.data_ptr(), x0.data_ptr(), kp.data_ptr(), x.data_ptr(), cost.data_ptr(),
-            M, int(iters), float(lam0), float(prior_weight), stream,
+            M, int(iters), float(lam0), float(prior_weight), blocks, threads, stream,
         )
     if err != 0:
         raise RuntimeError(f"lm_solver kernel launch failed: CUDA error {err}")

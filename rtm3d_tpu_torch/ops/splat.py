@@ -2,8 +2,10 @@
 
 ``splat_heatmap`` launches ``csrc/splat.cu``, the hand-written Hopper
 kernel that replaces ``rtm3d_tpu/ops/splat.py::_splat_kernel`` (the Pallas
-TPU kernel): one thread per output pixel, max over the object slots. It is
-bound by the bytes of its output (``splat_bytes``), not by its operations
+TPU kernel): one block per tile of one image (the kernel's shape, which
+``splat_tile_shape`` reads; the grid is ``splat_launch_geometry``'s), four
+pixels a thread, max over the slots that reach the tile. It is bound by the
+bytes of its output (``splat_bytes``), not by its operations
 (``splat_flops``); see the source's note for the design.
 
 Semantics (reference: datasets/dataset_reader.py:262-279 with
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -58,6 +61,35 @@ def splat_flops(m_proj: torch.Tensor, radius: torch.Tensor, mask: torch.Tensor, 
     ny = ((cy + r).clamp(max=H - 1) - (cy - r).clamp(min=0) + 1).clamp(min=0)
     pixels = (nx * ny * (radius >= 0) * mask).sum().item()
     return int(pixels) * _FLOPS_PER_WINDOW_PIXEL + int(mask.sum().item()) * _FLOPS_PER_SLOT
+
+
+def splat_launch_geometry(batch: int, height: int, width: int, tile) -> Tuple[int, int, int]:
+    """(grid_x, grid_y, grid_z) of a launch: one block per ``tile`` (rows,
+    columns) of one image, the last tile of a row or column cut by the
+    map's edge."""
+    tile_h, tile_w = tile
+    return -(-width // tile_w), -(-height // tile_h), batch
+
+
+def splat_live_slots(m_proj: torch.Tensor, radius: torch.Tensor, mask: torch.Tensor, feat_hw,
+                     tile) -> torch.Tensor:
+    """(B, grid_y, grid_x): the slots the kernel keeps for each ``tile``,
+    those masked in whose window (or noise center) reaches the tile, as
+    csrc/splat.cu tests them."""
+    H, W = (int(v) for v in feat_hw)
+    th, tw = tile
+    gx, gy, _ = splat_launch_geometry(mask.shape[0], H, W, tile)
+    dev = m_proj.device
+    x0, y0 = torch.arange(gx, device=dev) * tw, torch.arange(gy, device=dev) * th
+    x1, y1 = (x0 + tw).clamp(max=W) - 1, (y0 + th).clamp(max=H) - 1
+    cx, cy = m_proj[..., 0:1].long(), m_proj[..., 1:2].long()  # (B, N, 1)
+    zero = torch.zeros((), dtype=torch.long, device=dev)
+    gap_x = torch.maximum(torch.maximum(x0 - cx, cx - x1), zero)
+    gap_y = torch.maximum(torch.maximum(y0 - cy, cy - y1), zero)
+    reach = radius.float().clamp(min=0)[..., None]
+    live = ((gap_x.float() <= reach)[:, :, None, :] & (gap_y.float() <= reach)[:, :, :, None]
+            & mask.bool()[:, :, None, None])  # (B, N, grid_y, grid_x)
+    return live.sum(1)
 
 
 def splat_heatmap_reference(m_proj, cls, sigma, radius, mask, noise, feat_hw, num_classes: int):
@@ -91,11 +123,22 @@ def splat_heatmap_reference(m_proj, cls, sigma, radius, mask, noise, feat_hw, nu
 def _library() -> ctypes.CDLL:
     lib = kernel_build.load("splat")
     fn = lib.splat_heatmap_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.splat_max_classes.argtypes = []
     lib.splat_max_classes.restype = ctypes.c_int
+    lib.splat_tile_shape.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.splat_tile_shape.restype = None
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def splat_tile_shape() -> Tuple[int, int]:
+    """The kernel's tile, (rows, columns) of pixels, read from the built
+    library (csrc/splat.cu)."""
+    h, w = ctypes.c_int(), ctypes.c_int()
+    _library().splat_tile_shape(ctypes.byref(h), ctypes.byref(w))
+    return h.value, w.value
 
 
 def splat_heatmap(m_proj, cls, sigma, radius, mask, noise, feat_hw, num_classes: int):
@@ -128,11 +171,13 @@ def splat_heatmap(m_proj, cls, sigma, radius, mask, noise, feat_hw, num_classes:
     out = torch.empty((B, num_classes, H, W), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
+    grid_x, grid_y, _ = splat_launch_geometry(B, H, W, splat_tile_shape())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.splat_heatmap_launch(
             m_proj.data_ptr(), cls.data_ptr(), sigma.data_ptr(), radius.data_ptr(),
-            mask.data_ptr(), noise.data_ptr(), out.data_ptr(), B, N, H, W, int(num_classes), stream,
+            mask.data_ptr(), noise.data_ptr(), out.data_ptr(), B, N, H, W, int(num_classes),
+            grid_x, grid_y, stream,
         )
     if err != 0:
         raise RuntimeError(f"splat kernel launch failed: CUDA error {err}")

@@ -83,15 +83,44 @@ def test_lm_kernel_matches_reference(cuda, prior_weight):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 127, 129, 300])
+@pytest.mark.parametrize("M", [1, 2, 3, 31, 33, 65, 127, 129, 300, 1001])
 def test_lm_kernel_ragged_edge(cuda, M):
-    """No pad lanes: every M works, and lane i's answer does not depend on
-    how many lanes share the launch (the same lanes, cut from 300)."""
-    uv, x0, kp = lanes(np.random.RandomState(6), 300, noise=0.2)
+    """No pad lanes: every M works, a multiple of a warp or not, and lane
+    i's answer does not depend on how many lanes share the launch or on the
+    grid lm_launch_geometry picks for them (the same lanes, cut from 1,024)."""
+    uv, x0, kp = lanes(np.random.RandomState(6), 1024, noise=0.2)
     x_all, c_all = lm_solve(uv, x0, kp, iters=20, prior_weight=20.0)
     x, c = lm_solve(*(t[:, :M].contiguous() for t in (uv, x0, kp)), iters=20, prior_weight=20.0)
     assert x.shape == (8, M) and c.shape == (1, M)
     assert torch.equal(x, x_all[:, :M]) and torch.equal(c, c_all[:, :M])
+
+
+@pytest.mark.cuda
+def test_lm_kernel_keeps_a_bad_detection_to_itself(cuda):
+    """A detection whose targets are NaN, and one whose box starts with a
+    corner at z = 0, change no other detection's answer."""
+    M = 96
+    uv, x0, kp = lanes(np.random.RandomState(M), M, noise=0.1)
+    clean = lm_solve(uv, x0, kp, iters=40, prior_weight=20.0)
+    bad_uv, bad_x0 = uv.clone(), x0.clone()
+    bad_uv[:, 5] = float("nan")
+    # sin 0, cos 1: the corners with z sign +1/2 sit at depth w/2 + Z + 1e-4 = 0
+    bad_x0[7, 9] = -(0.5 * bad_x0[4, 9] + 1e-4)
+    bad = lm_solve(bad_uv, bad_x0, kp, iters=40, prior_weight=20.0)
+    torch.cuda.synchronize()
+    keep = torch.ones(M, dtype=torch.bool, device="cuda")
+    keep[[5, 9]] = False
+    assert torch.equal(bad[0][:, keep], clean[0][:, keep]) and torch.equal(bad[1][:, keep], clean[1][:, keep])
+
+
+@pytest.mark.cuda
+def test_kernels_are_deterministic(cuda):
+    uv, x0, kp = lanes(np.random.RandomState(8), 4096, noise=0.1)
+    runs = [lm_solve(uv, x0, kp, iters=40, prior_weight=20.0) for _ in range(3)]
+    assert all(torch.equal(r[0], runs[0][0]) and torch.equal(r[1], runs[0][1]) for r in runs)
+    args = splat_inputs(np.random.RandomState(3), 32, 64, 96, 320)
+    maps = [splat_heatmap(*args, (96, 320), 3) for _ in range(3)]
+    assert all(torch.equal(m, maps[0]) for m in maps)
 
 
 @pytest.mark.cuda
@@ -160,11 +189,14 @@ def splat_inputs(rng, B, N, H, W, C=3, device="cuda"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 8, 32, 40), (32, 64, 96, 320), (3, 70, 17, 33)])
+@pytest.mark.parametrize("shape", [(2, 8, 32, 40), (32, 64, 96, 320), (3, 70, 17, 33), (1, 64, 96, 320),
+                                   (2, 16, 20, 42), (2, 300, 9, 130)])
 def test_splat_kernel_matches_reference(cuda, shape):
     """Exact but for the ulp of expf: max |d| <= 1e-6, and the pixels equal
-    to 1.0 (the focal loss's positives) identical. (3, 70, 17, 33): more
-    slots than one staged chunk, a ragged tile edge."""
+    to 1.0 (the focal loss's positives) identical. (3, 70, 17, 33) and
+    (2, 16, 20, 42): ragged tile edges, and widths whose rows are not
+    16-byte aligned (one float a store); (1, 64, 96, 320): one image;
+    (2, 300, 9, 130): more slots than one staged chunk."""
     B, N, H, W = shape
     args = splat_inputs(np.random.RandomState(sum(shape)), B, N, H, W)
     before = splat_heatmap.launches
@@ -175,6 +207,38 @@ def test_splat_kernel_matches_reference(cuda, shape):
     assert (got - ref).abs().max().item() <= 1e-6
     assert torch.equal(got == 1.0, ref == 1.0)
     assert torch.equal(got, splat_heatmap(*args, (H, W), 3))  # deterministic
+
+
+@pytest.mark.cuda
+def test_splat_kernel_takes_centers_off_an_8_byte_boundary(cuda):
+    """m_proj as a contiguous view 4 bytes into its storage: the centers
+    cannot be read 8 bytes at a time there."""
+    B, N, H, W = 2, 16, 24, 80
+    args = splat_inputs(np.random.RandomState(6), B, N, H, W)
+    buf = torch.empty(B * N * 2 + 1, dtype=torch.int32, device="cuda")
+    buf[1:] = args[0].flatten()
+    shifted = buf[1:].view(B, N, 2)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 8 == 4
+    got = splat_heatmap(shifted, *args[1:], (H, W), 3)
+    assert torch.equal(got, splat_heatmap(*args, (H, W), 3))
+    assert (got - splat_heatmap_reference(*args, (H, W), 3)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_splat_kernel_many_slots_in_one_tile(cuda):
+    """130 slots, all centred in the first tile of image 0 (more than a
+    block stages at once), the rest of the batch as usual."""
+    B, N, H, W = 2, 130, 24, 80
+    args = splat_inputs(np.random.RandomState(4), B, N, H, W, device="cpu")
+    rng = np.random.RandomState(5)
+    args[0][0, :, 0] = torch.from_numpy(rng.randint(0, 64, N).astype(np.int32))
+    args[0][0, :, 1] = torch.from_numpy(rng.randint(0, 8, N).astype(np.int32))
+    args[4][0] = True
+    args = [a.cuda() for a in args]
+    got = splat_heatmap(*args, (H, W), 3)
+    ref = splat_heatmap_reference(*args, (H, W), 3)
+    assert (got - ref).abs().max().item() <= 1e-6
+    assert torch.equal(got == 1.0, ref == 1.0)
 
 
 @pytest.mark.cuda
