@@ -38,7 +38,8 @@ phases of one JSON line each; any failure exits non-zero:
            float64 differs by 0.95% and at most 1.3%, GPU against CPU by
            2.1% and 3.2% on the H100);
   train    configs/rtm3d_dla34_kitti_tpu.yaml's model and solver at full
-           width, DLA-34 1280x384 batch 32 bf16 autocast, EMA, MAX_OBJS 64,
+           width, DLA-34 1280x384 (tools/bench_train.py's frame shape)
+           batch 32 bf16 autocast, EMA, MAX_OBJS 64,
            synthetic uint8 frames and label blocks (a quarter of the slots
            masked, a tenth noise): 3 warm-up steps, 10 timed steps on
            distinct batches, 2 eval-loss steps; finite loss and aux, one
@@ -46,7 +47,28 @@ phases of one JSON line each; any failure exits non-zero:
            WARMUP_ITERS 0, whose loss must fall; images/s, ms per step and
            peak memory;
   train_profile  torch.profiler over two train steps, the table to
-           chip_smoke_out/train_profile.json.
+           chip_smoke_out/train_profile.json;
+  data     training from files through ``python -m rtm3d_tpu_torch.cli.train``
+           (``cli.train.main``, in this process): the port's generator
+           writes a KITTI-layout tree of 128 train and 20 test frames of
+           375x1242 (KITTI's size) under chip_smoke_out/data (data_tree);
+           configs/rtm3d_dla34_kitti_tpu.yaml, overriding only the data
+           path, the weights dir, CHECKPOINT_MODE start and MAX_EPOCH 2:
+           DLA-34 1280x416 b32 bf16, EMA, 4 workers, device warp and device
+           cache (train_cli_device); a resume to MAX_EPOCH 3 that must
+           restore every tensor bit-equal before its first step, start at
+           epoch 2 and leave the pointer on its last save (resume);
+           configs/rtm3d_dla34_kitti.yaml for 1 epoch of 8 steps, fp32 b16,
+           host augmentation (train_cli_host). After each mode's run, a
+           few batches built in this process: the host's ms for each
+           (data_*_parent), the splat against its plain version on the
+           first one's labels (splat_data_shape_device: B 32, 104x320;
+           splat_data_shape_host: B 16), and torch.profiler over two steps
+           on it (data_profile, data_profile_host; the tables to
+           chip_smoke_out/), whose kernel time gives the device's idle
+           share over the run's last epoch. Gates: finite losses,
+           img_size [1280, 416], one splat launch per train and eval
+           batch, the splat as in the splat phase.
 Then the seconds of each phase, the kernels line, the nvidia-smi line and,
 last, {"ok": true, ...}. Needs one CUDA device; without one it exits
 non-zero and prints no result.
@@ -70,6 +92,7 @@ version once, untimed. A line per record; all of them go to FILE
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import re
@@ -85,13 +108,15 @@ from torch.utils.flop_counter import FlopCounterMode
 from rtm3d_tpu_torch.utils.measure import (
     BATCH, FRAME_H, FRAME_W, ITERS, K_KITTI, PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS, TOPK,
     TRAIN_BATCH, TRAIN_OBJS, cuda_time_ms, kernel_device_ms, lm_agreement, nvidia_smi,
-    splat_edge_inputs, synthetic_labels, synthetic_lanes,
+    splat_edge_inputs, state_tensors, synthetic_labels, synthetic_lanes, unequal,
 )
 
 H, W = FRAME_H, FRAME_W
 SERVE_CALLS = 6
 LM_REPLACES = "rtm3d_tpu/ops/lm_solver.py:35"
 SPLAT_REPLACES = "rtm3d_tpu/ops/splat.py:26"
+DATA_TRAIN, DATA_TEST, KITTI_HW = 128, 20, (375, 1242)  # frames of the data phase's tree
+KITTI_RECT = [1280, 416]  # IS_RECT's input on KITTI-sized frames
 TRAIN_WARMUP, TRAIN_TIMED, LOSS_FALL_STEPS = 3, 10, 20
 AB_LM_REPS, AB_SPLAT_REPS = 20, 100
 
@@ -350,7 +375,10 @@ def train_phase(nn_model, step_mod, state_mod, load_config, lm, splat) -> dict:
     batches, then the loss-falls check on one repeated batch."""
     cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                    "configs", "rtm3d_dla34_kitti_tpu.yaml"))
-    cfg.INPUT_SIZE = (W, H)  # the rect shape of (1280, 1280) IS_RECT on KITTI frames
+    # tools/bench_train.py's synthetic 372x1242 frames under IS_RECT give
+    # 1280x384; KITTI's own frames, 370-376 px tall, give 1280x416 (the
+    # longest side to 1280, each side up to a multiple of 32): the data phase
+    cfg.INPUT_SIZE = (W, H)
     cfg.BATCH_SIZE, cfg.DATASET.MAX_OBJS = TRAIN_BATCH, TRAIN_OBJS  # the file's 32 and the default 64
     gen = torch.Generator(device="cuda").manual_seed(4)
     rng = np.random.RandomState(4)
@@ -423,6 +451,154 @@ def train_phase(nn_model, step_mod, state_mod, load_config, lm, splat) -> dict:
         raise AssertionError(f"train: the loss did not fall over {LOSS_FALL_STEPS} steps on one batch: {rec}")
     profile_calls("train_profile", lambda: step(state, batches[1]), 2, "chip_smoke_out/train_profile.json")
     return rec
+
+
+def cli_record(out: dict, batch: int, workers: int, launches: int) -> dict:
+    """One cli.train.main run: its epochs' losses and counts, and over its
+    last epoch the wall images/s (loader included), each step's span on
+    the stream from CUDA events (host waits inside a step, such as the
+    photometric seeds' read, are in the span), the share of the train
+    loop's wall time outside those spans, and the host's ms to build a
+    batch in the loader's workers. The device's own idle share needs the
+    kernel time: ``device_idle_share`` below."""
+    hist, last = out["history"], out["history"][-1]
+    span_ms = sum(last["step_span_ms"])
+    wall_ms = last["train_wall_s"] * 1e3
+    return {
+        "img_size": out["img_size"], "batch": batch, "workers": workers, "start_epoch": out["start_epoch"],
+        "steps": [h["steps"] for h in hist], "eval_batches": [h["eval_batches"] for h in hist],
+        "train_loss": [h["train_loss"][-1] for h in hist], "eval_loss": [h["eval_loss"][-1] for h in hist],
+        "train_aux": [h["train_loss"] for h in hist], "num_targets": [h["num_targets"] for h in hist],
+        "cache_gb": out["cache_bytes"] / 1e9,
+        "last_epoch_wall_ms": wall_ms,
+        "last_epoch_wall_images_per_s": batch * last["steps"] / last["train_wall_s"],
+        "last_epoch_step_span_ms": span_ms, "last_epoch_step_span_ms_per_step": span_ms / last["steps"],
+        "last_epoch_step_span_ms_each": last["step_span_ms"],
+        "last_epoch_outside_step_share": 1.0 - span_ms / wall_ms,
+        "host_ms_per_batch": 1e3 * float(np.mean([s for h in hist for s in h["build_s"]])),
+        "last_epoch_loader_wait_ms": [1e3 * w for w in last["wait_s"]],
+        "splat_launches": launches,
+    }
+
+
+def check_cli_run(name: str, rec: dict, launches: int, out: dict) -> None:
+    hist = out["history"]
+    losses = [v for h in hist for v in h["train_loss"] + (h["eval_loss"] or [])]
+    want = sum(h["steps"] + h["eval_batches"] for h in hist)
+    if not all(np.isfinite(losses)) or not hist or any(h["steps"] == 0 for h in hist):
+        raise AssertionError(f"{name}: a loss is not finite or an epoch ran no step: {rec}")
+    if out["img_size"] != KITTI_RECT:
+        raise AssertionError(f"{name}: img_size {out['img_size']}, expected {KITTI_RECT} on KITTI frames")
+    if launches != want:
+        raise AssertionError(f"{name}: {launches} splat launches, expected one per train and eval batch ({want})")
+
+
+def data_phase(splat, load_config, generate_kitti, cli_train) -> tuple:
+    """Training from files through the port's CLI: a KITTI-layout tree,
+    the device mode with a resume, and the host mode; after each mode's
+    run, ``parent_batches``. Returns the runs' records and the splat
+    checks at the data path's shapes."""
+    from rtm3d_tpu_torch.data.kitti import create_dataset
+    from rtm3d_tpu_torch.data.loader import DataLoader, prefetch_to_device
+    from rtm3d_tpu_torch.data.targets import heatmap_inputs
+    from rtm3d_tpu_torch.train.step import make_train_step
+
+    root = os.path.abspath(os.path.join("chip_smoke_out", "data"))
+    shutil.rmtree(root, ignore_errors=True)
+    tree = os.path.join(root, "kitti")
+    t0 = time.perf_counter()
+    generate_kitti(tree, DATA_TRAIN, DATA_TEST, KITTI_HW, max_objs=8, seed=20)
+    seconds = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tree) for f in fs)
+    emit("data_tree", frames=DATA_TRAIN + DATA_TEST, train=DATA_TRAIN, test=DATA_TEST, hw=list(KITTI_HW),
+         bytes=nbytes, seconds=seconds)
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    recs, splats = {}, {}
+
+    def run(name, config, weights, mode, epochs, on_start=None):
+        cfg = load_config(os.path.join(configs, config))
+        argv = ["--model-config", os.path.join(configs, config), "--data-path", tree,
+                "--set", "TRAINING.WEIGHTS", weights, "TRAINING.CHECKPOINT_MODE", mode, "SOLVER.MAX_EPOCH", str(epochs)]
+        splat.splat_heatmap.launches = 0
+        out = cli_train.main(argv, on_start=on_start)
+        torch.cuda.synchronize()
+        launches = splat.splat_heatmap.launches
+        recs[name] = cli_record(out, int(cfg.BATCH_SIZE), int(cfg.get("num_workers", 0)), launches)
+        emit(name, **recs[name])
+        check_cli_run(name, recs[name], launches, out)
+        return out
+
+    def parent_batches(name, config, out, count, profile):
+        """``count`` train batches of ``config`` built by a loader in this
+        process (no workers, nothing else running): the host's ms for each,
+        the first being its first build. On the first batch: the splat
+        against its plain version at the run's shape and labels, and two
+        train steps of ``out``'s state under the profiler, whose kernel
+        time a step gives the device's idle share over the run's last
+        epoch (1 - kernel ms a step x steps / the epoch's wall ms)."""
+        cfg = load_config(os.path.join(configs, config))
+        cfg.INPUT_SIZE = tuple(out["img_size"])
+        ds = create_dataset(tree, cfg, is_training=True, split="train")
+        cache = torch.from_numpy(ds.canvas_array()).cuda() if ds.device_cache else None
+        loader = DataLoader(ds, int(cfg.BATCH_SIZE), seed=20)
+        batches = list(prefetch_to_device(itertools.islice(iter(loader), count), "cuda"))
+        build_ms = [1e3 * s for s in loader.build_seconds]
+        down = int(cfg.MODEL.DOWN_SAMPLE)
+        feat_hw = (cfg.INPUT_SIZE[1] // down, cfg.INPUT_SIZE[0] // down)
+        inputs = heatmap_inputs(batches[0]["labels"], float(down), cfg.DATASET.GAUSSIAN_GEN_TYPE,
+                                cfg.DATASET.BBOX_AREA_MAX, cfg.DATASET.BBOX_AREA_MIN)
+        splats[name] = splat_phase(splat, inputs, feat_hw, len(cfg.DATASET.OBJs), f"data_shape_{name}")
+        step = make_train_step(cfg, device="cuda")
+        state = out["state"]
+        prof = profile_calls(profile, lambda: step(state, batches[0], cache), 2, f"chip_smoke_out/{profile}.json")
+        rec = recs[f"train_cli_{name}"]
+        kernel_ms = prof["device_busy_ms"] / prof["calls"]
+        steps = rec["steps"][-1]
+        emit(f"data_{name}_parent", batch=int(cfg.BATCH_SIZE), build_ms=build_ms,
+             steady_build_ms=float(np.mean(build_ms[1:])), kernel_ms_per_step=kernel_ms,
+             last_epoch_device_idle_share=1.0 - kernel_ms * steps / rec["last_epoch_wall_ms"],
+             last_epoch_outside_step_share=rec["last_epoch_outside_step_share"])
+
+    weights = os.path.join(root, "weights_device")
+    out = run("train_cli_device", "rtm3d_dla34_kitti_tpu.yaml", weights, "start", 2)
+    saved = state_tensors(out["state"])
+    first_eval = [h["eval_loss"][-1] for h in out["history"]]
+    parent_batches("device", "rtm3d_dla34_kitti_tpu.yaml", out, 4, "data_profile")
+    del out
+    torch.cuda.empty_cache()
+
+    restored = {}
+
+    def on_start(state, start_epoch):
+        restored["start_epoch"] = start_epoch
+        restored["unequal"] = unequal(state_tensors(state), saved)
+        restored["tensors"] = sum(torch.is_tensor(v) for v in saved.values())
+
+    out = run("resume", "rtm3d_dla34_kitti_tpu.yaml", weights, "resume", 3, on_start=on_start)
+    save_dir = os.path.join(weights, "DLA-34")
+    files = sorted(os.listdir(save_dir))
+    with open(os.path.join(save_dir, "last_checkpoint")) as f:
+        pointer = os.path.basename(f.read().strip())
+    epoch2_best = out["history"][0]["eval_loss"][-1] < min(first_eval)
+    want_pointer = "model_best.pt" if epoch2_best else "model_0000002.pt"
+    emit("resume_check", start_epoch=restored.get("start_epoch"), tensors_compared=restored.get("tensors"),
+         unequal=restored.get("unequal", ["on_start was not called"])[:10], files=files, last_checkpoint=pointer,
+         expected_last_checkpoint=want_pointer)
+    if restored.get("start_epoch") != 2 or out["start_epoch"] != 2 or restored.get("unequal"):
+        raise AssertionError(f"resume: not bit-equal from epoch 2: {restored.get('unequal')}")
+    if pointer != want_pointer or files != ["last_checkpoint", "model_0000000.pt", "model_0000001.pt",
+                                            "model_0000002.pt", "model_best.pt"]:
+        raise AssertionError(f"resume: last_checkpoint {pointer} (expected {want_pointer}), files {files}")
+    del out, saved
+    torch.cuda.empty_cache()
+
+    out = run("train_cli_host", "rtm3d_dla34_kitti.yaml", os.path.join(root, "weights_host"), "start", 1)
+    parent_batches("host", "rtm3d_dla34_kitti.yaml", out, 3, "data_profile_host")
+    del out
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(root, "weights_device"), ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "weights_host"), ignore_errors=True)
+    return recs, splats
 
 
 def ptxas_lines(log: str) -> list:
@@ -600,6 +776,8 @@ def main() -> int:
         return kernel_ab(args.kernel_ab, args.check_only, args.out)
     from rtm3d_tpu_torch import default_config, load_config
     from rtm3d_tpu_torch.api import Detector
+    from rtm3d_tpu_torch.cli import train as cli_train
+    from rtm3d_tpu_torch.data.synthetic import generate_kitti
     from rtm3d_tpu_torch.data.targets import heatmap_inputs
     from rtm3d_tpu_torch.nn import model as nn_model
     from rtm3d_tpu_torch.ops import lm_solver as lm
@@ -672,6 +850,8 @@ def main() -> int:
     phase_done("train_fp32")
     trained = train_phase(nn_model, step_mod, state_mod, load_config, lm, splat)
     phase_done("train_and_profile")
+    from_files, data_splats = data_phase(splat, load_config, generate_kitti, cli_train)
+    phase_done("data")
     emit("seconds", **seconds, total=round(sum(seconds.values()), 2))
 
     pair = (first, second)
@@ -693,9 +873,14 @@ def main() -> int:
         "route": "cuda",
         "source": "rtm3d_tpu_torch/csrc/splat.cu",
         "replaces": SPLAT_REPLACES,
-        # one launch per train step: the timed steps of the train phase
-        "launches": trained["splat_launches"],
-        "max_abs_err": max(splat_main["max_abs_err"], splat_edge["max_abs_err"]),
+        # one launch per train step and eval batch: the timed steps of the
+        # train phase and the data phase's three runs of the CLI
+        "launches": trained["splat_launches"] + sum(r["splat_launches"] for r in from_files.values()),
+        "launches_by_path": {"train": trained["splat_launches"],
+                             **{k: r["splat_launches"] for k, r in from_files.items()}},
+        # at the train phase's shape, on the edge batch and at both data
+        # modes' shapes and labels
+        "max_abs_err": max(r["max_abs_err"] for r in (splat_main, splat_edge, *data_splats.values())),
         "ms": splat_main["kernel_ms"],
         "plain_ms": splat_main["plain_ms"],
         "bound_ms": splat_main["bound_ms"],

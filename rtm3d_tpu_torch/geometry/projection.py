@@ -1,6 +1,7 @@
 """Camera geometry on tensors: yaw rotations, 3D box corners, projection.
 
-Port of ``rtm3d_tpu/geometry/projection.py:43-116``, the torch path only.
+Port of ``rtm3d_tpu/geometry/projection.py:43-116``, the torch path only,
+and of its class-name mapping (``:124-145``, plain Python).
 ``proj2d_bbox3d`` stands in for the reference's missing devkit call
 ``calc_proj2d_bbox3d`` (datasets/dataset_reader.py:9-11), re-derived from
 the corner and projection math of utils/model_utils.py:66-152.
@@ -68,3 +69,30 @@ def proj2d_bbox3d(dimension: torch.Tensor, location: torch.Tensor, ry: torch.Ten
     corners = uv[:, :, :8]
     bboxes_2d = torch.cat([corners.amin(2), corners.amax(2)], -1)
     return uv, bboxes_2d, location[:, 2] > 0
+
+
+# KITTI class names <-> integer labels in the devkit's order: the port's
+# copy of rtm3d_tpu/geometry/projection.py:124-145 (the reference calls
+# ``kitti_util.name_2_label(cfg.DATASET.OBJs)``, dataset_reader.py:22-23).
+KITTI_NAMES = [
+    "Car",
+    "Van",
+    "Truck",
+    "Pedestrian",
+    "Person_sitting",
+    "Cyclist",
+    "Tram",
+    "Misc",
+    "DontCare",
+]
+
+
+def name_2_label(names):
+    """Map name(s) to devkit integer labels; nested lists map elementwise."""
+    if isinstance(names, str):
+        return KITTI_NAMES.index(names)
+    return [name_2_label(n) for n in names]
+
+
+def label_2_name(label: int) -> str:
+    return KITTI_NAMES[label]

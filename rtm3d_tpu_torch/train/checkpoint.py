@@ -1,5 +1,9 @@
-"""Weights carried into the port.
+"""Checkpoints of the port, and weights carried into it.
 
+- ``CheckPointer``: save and resume the train state, one ``torch.save``
+  file per save with a ``last_checkpoint`` pointer (port of
+  ``rtm3d_tpu/train/checkpoint.py:37-175``; reference
+  utils/check_point.py:116-175).
 - ``state_dict_from_jax``: the JAX package's variables (nested dicts of
   numpy arrays, ``{"params": ..., "batch_stats": ...}``) -> this package's
   state_dict, by exact name. The name and layout translation is the port's
@@ -11,17 +15,113 @@
   ``load_torch_state_dict``, :305-315). The port's modules carry the
   reference names, so the result loads with ``strict=True`` as it is.
 
-Flax msgpack checkpoints are not read yet (ROADMAP.md, queue A).
+Flax msgpack checkpoints are not read yet, and neither orbax directories
+nor multi-process saves are written (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
 
+import math
+import os
 import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+
+class CheckPointer:
+    """``<name>.pt`` files under ``save_dir`` with a ``last_checkpoint``
+    pointer file that each save tags.
+
+    A file holds the model's state dict (parameters and BN buffers), the
+    optimizer's state dict, the EMA shadow (or None), ``step``,
+    ``updates``, ``epoch`` and ``min_loss``. ``max_to_keep`` bounds the
+    rolling ``model_*`` files (the oldest go; ``model_best`` is never
+    removed): the reference saves every epoch without bound
+    (train.py:158-162)."""
+
+    def __init__(self, save_dir: str, max_to_keep: int = 5):
+        self.save_dir = save_dir
+        self.max_to_keep = max_to_keep
+        os.makedirs(save_dir, exist_ok=True)
+
+    # -- pointer file (check_point.py:156-175) --
+    def _tag_file(self) -> str:
+        return os.path.join(self.save_dir, "last_checkpoint")
+
+    def has_checkpoint(self) -> bool:
+        return os.path.exists(self._tag_file())
+
+    def get_checkpoint_file(self) -> str:
+        try:
+            with open(self._tag_file()) as f:
+                return f.read().strip()
+        except OSError:
+            return ""
+
+    def tag_last_checkpoint(self, path: str):
+        with open(self._tag_file(), "w") as f:
+            f.write(path)
+
+    # -- save/load --
+    def save(self, name: str, state, epoch: int = 0, min_loss: float = math.inf) -> str:
+        payload = {
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "ema": state.ema,
+            "step": int(state.step),
+            "updates": int(state.updates),
+            "epoch": int(epoch),
+            "min_loss": float(min_loss),
+        }
+        path = os.path.join(self.save_dir, f"{name}.pt")
+        torch.save(payload, path)
+        self.tag_last_checkpoint(path)
+        self._enforce_retention(keep=os.path.basename(path))
+        return path
+
+    def _enforce_retention(self, keep: str):
+        if not self.max_to_keep or self.max_to_keep <= 0:
+            return
+        rolling = sorted(
+            f for f in os.listdir(self.save_dir)
+            if f.startswith("model_") and not f.startswith("model_best") and f.endswith(".pt")
+        )
+        for f in rolling[: max(0, len(rolling) - self.max_to_keep)]:
+            if f != keep:
+                try:
+                    os.remove(os.path.join(self.save_dir, f))
+                except OSError:
+                    pass
+
+    def load(self, state_template, path: Optional[str] = None, use_latest: bool = True):
+        """Returns ``(state, meta)``, meta = {'epoch', 'min_loss'}: the file
+        (the pointer's when ``use_latest``) restored in place into
+        ``state_template``, bit for bit, on the template's device. With no
+        file, ``(state_template, {})`` (check_point.py:139-145)."""
+        if use_latest and self.has_checkpoint():
+            path = self.get_checkpoint_file()
+        if not path or not os.path.exists(path):
+            return state_template, {}
+        # read to the host: load_state_dict copies each tensor onto its
+        # template's device, and leaves Adamax's step counters on the host
+        # where the optimizer keeps them
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        state_template.model.load_state_dict(payload["model"], strict=True)
+        state_template.optimizer.load_state_dict(payload["optimizer"])
+        if (payload["ema"] is None) != (state_template.ema is None):
+            raise ValueError(f"{path}: the EMA shadow is {'absent' if payload['ema'] is None else 'present'}, "
+                             "the train state's is not")
+        if payload["ema"] is not None:
+            with torch.no_grad():
+                for k, v in state_template.ema.items():
+                    v.copy_(payload["ema"][k])
+        state_template.step = payload["step"]
+        state_template.updates = payload["updates"]
+        return state_template, {"epoch": payload["epoch"], "min_loss": payload["min_loss"]}
+
 
 _HEAD_BRANCHES = ("main_kf", "offset_fr_main", "main_offset", "vertex_offset", "vertex_kf")
 

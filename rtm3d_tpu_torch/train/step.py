@@ -11,21 +11,24 @@ normalised float, a label block of fixed (B, MAX_OBJS, ...) tensors
 steps' keys. Inside, the network runs channels_last (NCHW logits).
 
 The train and eval-loss steps build their targets on the device, inside
-the step, with the splat kernel (``ops/splat.py``). Mixed precision
-differs from the JAX step in form: the JAX step casts params and BN
-statistics to ``TPU.COMPUTE_DTYPE`` and re-promotes the new statistics
-(step.py:110-139); the port keeps fp32 masters and runs forward and
-backward under ``torch.autocast(dtype=torch.bfloat16)``. So under bf16
-BatchNorm keeps fp32 weights and running statistics and reduces in fp32,
-and the KFPN softmax runs in fp32 (autocast promotes it), where the JAX
-step ran both in bf16. Parity is held at fp32.
+the step, with the splat kernel (``ops/splat.py``). Their input stage,
+``prepare_images`` (step.py:47-92), takes the loader's three batch forms:
+uint8 or normalised frames; raw canvases with ``warp`` (and ``photo``,
+``border``) scalars, warped on the device by ``ops/device_warp.py``; or,
+with the device dataset cache, ``image_idx`` rows gathered from it.
 
-Left out (ROADMAP.md): the device-warp and photometric input modes
-(step.py:47-92), the device dataset cache, ``TPU.REMAT`` (a
-``torch.utils.checkpoint`` re-run of the forward would update the BN
-running statistics a second time, which ``jax.checkpoint`` does not) and
-``TPU.DONATE`` (no meaning in eager PyTorch: the step updates the state in
-place).
+Mixed precision differs from the JAX step in form: the JAX step casts
+params and BN statistics to ``TPU.COMPUTE_DTYPE`` and re-promotes the new
+statistics (step.py:110-139); the port keeps fp32 masters and runs
+forward and backward under ``torch.autocast(dtype=torch.bfloat16)``. So
+under bf16 BatchNorm keeps fp32 weights and running statistics and
+reduces in fp32, and the KFPN softmax runs in fp32 (autocast promotes
+it), where the JAX step ran both in bf16. Parity is held at fp32.
+
+Left out (ROADMAP.md): ``TPU.REMAT`` (a ``torch.utils.checkpoint``
+re-run of the forward would update the BN running statistics a second
+time, which ``jax.checkpoint`` does not) and ``TPU.DONATE`` (no meaning
+in eager PyTorch: the step updates the state in place).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from rtm3d_tpu_torch.data.targets import build_targets
 from rtm3d_tpu_torch.decode.peaks import decode_detections
 from rtm3d_tpu_torch.decode.solve3d import solve_bbox3d
 from rtm3d_tpu_torch.losses.rtm3d_loss import rtm3d_loss
+from rtm3d_tpu_torch.ops.device_warp import device_warp
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -82,10 +86,51 @@ def _feat_hw(cfg: Config):
     return h // d, w // d
 
 
+def prepare_images(batch: dict, cfg: Config, image_cache: torch.Tensor | None = None) -> torch.Tensor:
+    """The device-side input stage: (B, H, W, 3) float32 normalised frames.
+
+    With ``image_idx`` the frames are rows of ``image_cache``, the device
+    dataset cache (``index_select``), else ``batch['image']``. With
+    ``warp`` the frames are raw canvases: first the photometric step when
+    the batch carries ``photo`` (B, 4: alpha, beta, std, seed), ``x *
+    alpha + beta * 255`` plus N(0, std) noise, clipped to [0, 255]; then
+    ``ops/device_warp.py::device_warp`` to ``INPUT_SIZE`` with the border
+    colour ``border``. Without ``warp``, the uint8 normalisation.
+
+    The noise is one draw for the whole batch from a ``torch.Generator`` on
+    the frames' device, seeded from the batch's seed column and scaled by
+    each lane's std: lanes are disjoint slices of the draw, so two lanes
+    whose host seeds are equal still differ, and a lane with std 0 gets
+    none. Torch's stream is not JAX's: the noise matches the JAX step's in
+    distribution only. Reading the seeds waits for the batch's (small)
+    ``photo`` tensor."""
+    if "image_idx" in batch:
+        if image_cache is None:
+            raise ValueError("the batch carries image_idx but no image_cache was given")
+        imgs = image_cache.index_select(0, batch["image_idx"].to(image_cache.device, torch.long))
+    else:
+        imgs = batch["image"]
+    if "warp" not in batch:
+        return normalize_images(imgs, cfg)
+    if "photo" in batch:
+        ph = batch["photo"].to(torch.float32)
+        x = imgs.to(torch.float32) * ph[:, 0, None, None, None] + ph[:, 1, None, None, None] * 255.0
+        seed = 0
+        for s in ph[:, 3].tolist():
+            seed = (seed * 1000003 + int(s)) % (2**63)
+        gen = torch.Generator(device=x.device).manual_seed(seed)
+        x += torch.randn(x.shape, generator=gen, device=x.device) * ph[:, 2, None, None, None]
+        imgs = x.clamp_(0.0, 255.0)
+    w, h = int(cfg.INPUT_SIZE[0]), int(cfg.INPUT_SIZE[1])
+    return device_warp(imgs, batch["warp"], (h, w), cfg.DATASET.MEAN, cfg.DATASET.STD, border=batch.get("border"))
+
+
 def _to_device(batch: dict, device: torch.device) -> dict:
-    """The batch's arrays and tensors, nested dicts included, on ``device``."""
+    """The batch's arrays and tensors, nested dicts included, on
+    ``device``; the loader's ``path`` list stays on the host."""
     return {
-        k: _to_device(v, device) if isinstance(v, dict) else torch.as_tensor(v).to(device, non_blocking=True)
+        k: _to_device(v, device) if isinstance(v, dict)
+        else v if k == "path" else torch.as_tensor(v).to(device, non_blocking=True)
         for k, v in batch.items()
     }
 
@@ -96,10 +141,12 @@ def _check_state(state, device: torch.device) -> None:
         raise ValueError(f"the train state lives on {got}, the step runs on {device}")
 
 
-def _loss_from_batch(net: nn.Module, cfg: Config, batch: dict, sample_mask=None, variables=None):
+def _loss_from_batch(net: nn.Module, cfg: Config, batch: dict, sample_mask=None, variables=None,
+                     image_cache=None):
     """(loss, aux) of ``net`` on ``batch``, targets built on the device.
     ``variables``: parameters and buffers to evaluate in place of the
-    module's own (``torch.func.functional_call``)."""
+    module's own (``torch.func.functional_call``); ``image_cache``: the
+    device dataset cache ``prepare_images`` gathers from."""
     targets = build_targets(
         batch["labels"],
         _feat_hw(cfg),
@@ -110,7 +157,7 @@ def _loss_from_batch(net: nn.Module, cfg: Config, batch: dict, sample_mask=None,
         bbox_area_min=cfg.DATASET.BBOX_AREA_MIN,
     )
     # NHWC -> an NCHW view with channels_last strides: no copy
-    x = normalize_images(batch["image"], cfg).permute(0, 3, 1, 2)
+    x = prepare_images(batch, cfg, image_cache).permute(0, 3, 1, 2)
     dtype = compute_dtype(cfg)
     with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != torch.float32):
         logits = net(x) if variables is None else torch.func.functional_call(net, variables, (x,))
@@ -124,13 +171,14 @@ def _loss_from_batch(net: nn.Module, cfg: Config, batch: dict, sample_mask=None,
 
 
 def make_train_step(cfg: Config, device=None) -> Callable:
-    """Returns ``train_step(state, batch) -> (state, metrics)``.
+    """Returns ``train_step(state, batch, image_cache=None) -> (state, metrics)``.
 
     ``state`` is a ``train.state.TrainState`` on ``device`` (the GPU when
     None); the step updates it in place and returns it. ``batch``:
     {'image': (B,H,W,3) uint8 or float, 'labels': {cls, bbox, dim, alpha, ry,
-    loc, K, mask, noise_mask} padded to MAX_OBJS}; arrays on another device
-    are copied to ``device``. metrics: {'loss', 'loss_items' [MKF, VFM,
+    loc, K, mask, noise_mask} padded to MAX_OBJS}, or a raw-mode batch (see
+    ``prepare_images``; ``image_cache`` is the device dataset cache); arrays
+    on another device are copied to ``device``. metrics: {'loss', 'loss_items' [MKF, VFM,
     M_OFF, V_OFF, total], 'num_targets'}, tensors on the device (no sync).
 
     Per call: targets, forward, backward. With ``SOLVER.ACCUMULATE_STEPS``
@@ -147,14 +195,14 @@ def make_train_step(cfg: Config, device=None) -> Callable:
     compute_dtype(cfg)  # validate before the first step
     decay = float(cfg.TRAINING.get("EMA_DECAY", 0.9999))
 
-    def train_step(state, batch):
+    def train_step(state, batch, image_cache=None):
         _check_state(state, device)
         net, opt, k = state.model, state.optimizer, state.accumulate_steps
         net.train()
         batch = _to_device(batch, device)
         if state.step % k == 0:
             opt.zero_grad(set_to_none=True)
-        loss, aux = _loss_from_batch(net, cfg, batch)
+        loss, aux = _loss_from_batch(net, cfg, batch, image_cache=image_cache)
         loss.backward()
         if (state.step + 1) % k == 0:
             for group in opt.param_groups:
@@ -187,7 +235,7 @@ def make_train_step(cfg: Config, device=None) -> Callable:
 
 
 def make_eval_loss_step(cfg: Config, device=None) -> Callable:
-    """Returns ``eval_step(state, batch, num_valid=None) -> {'loss', 'loss_items'}``:
+    """Returns ``eval_step(state, batch, image_cache=None, num_valid=None) -> {'loss', 'loss_items'}``:
     the eval-mode loss (reference test_epoch, train.py:61-81) on the EMA
     shadow when one is tracked (check_point.py:122), BN on its running
     statistics. Rows where ``batch['sample_valid']`` is False, or rows
@@ -196,7 +244,7 @@ def make_eval_loss_step(cfg: Config, device=None) -> Callable:
     device = resolve_device(device)
     compute_dtype(cfg)
 
-    def eval_step(state, batch, num_valid=None):
+    def eval_step(state, batch, image_cache=None, num_valid=None):
         _check_state(state, device)
         batch = _to_device(batch, device)
         sample_mask = batch.get("sample_valid")
@@ -210,7 +258,7 @@ def make_eval_loss_step(cfg: Config, device=None) -> Callable:
         net.eval()
         try:
             with torch.no_grad():
-                loss, aux = _loss_from_batch(net, cfg, batch, sample_mask, state.eval_variables())
+                loss, aux = _loss_from_batch(net, cfg, batch, sample_mask, state.eval_variables(), image_cache)
         finally:
             net.train(was_training)
         return {"loss": loss, "loss_items": aux}

@@ -1,6 +1,7 @@
 """What the measurements of the port on a GPU share (``chip_smoke.py``):
 the card's peak rates, the timers, the detect and train paths' shapes and
-their synthetic inputs, and the LM kernel's agreement with its plain version.
+their synthetic inputs, the LM kernel's agreement with its plain version,
+and a train state's tensors for a bit-for-bit comparison.
 
 It imports torch and numpy and nothing of this package, so a process that
 imports another version of ``rtm3d_tpu_torch`` (``chip_smoke.py
@@ -156,3 +157,30 @@ def splat_edge_inputs(B: int, N: int, feat_hw):
     return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
         m_proj.astype(np.int32), cls.astype(np.int32), sigma.astype(np.float32),
         radius.astype(np.float32), mask, noise)]
+
+
+def state_tensors(state) -> dict:
+    """Every tensor and counter of a train state, copied: parameters and BN
+    buffers, the optimizer's state and hyperparameters, the EMA shadow,
+    step and updates."""
+    out = {f"model.{k}": v.detach().clone() for k, v in state.model.state_dict().items()}
+    opt = state.optimizer.state_dict()
+    for i, st in opt["state"].items():
+        out.update({f"opt.{i}.{k}": v.clone() if torch.is_tensor(v) else v for k, v in st.items()})
+    for i, group in enumerate(opt["param_groups"]):
+        out[f"opt.group{i}"] = {k: v for k, v in group.items()}
+    out.update({f"ema.{k}": v.clone() for k, v in (state.ema or {}).items()})
+    out["step"], out["updates"] = state.step, state.updates
+    return out
+
+
+def unequal(a: dict, b: dict) -> list:
+    """Keys of two ``state_tensors`` whose values differ in any bit, dtype
+    or device, or that only one side has."""
+    bad = sorted(set(a) ^ set(b))
+    for k in sorted(set(a) & set(b)):
+        x, y = a[k], b[k]
+        same = (x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)) if torch.is_tensor(x) else x == y
+        if not same:
+            bad.append(k)
+    return bad
