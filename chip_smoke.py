@@ -9,6 +9,7 @@ phases of one JSON line each; any failure exits non-zero:
   device   the card (nvidia-smi name and power limit), torch and CUDA versions;
   build    compiles rtm3d_tpu_torch/csrc/*.cu (nvcc, one process per source)
            and fails if ptxas reports a spill store or load in any kernel;
+           then the AP evaluator's host C++ library, csrc/geometry.cc (c++);
   lm_*     the LM kernel against its plain PyTorch version on the card at
            the detect path's lane counts (M = 25,600 and 38,400 for batch
            128 x top-K 100, the second call's third init being the first
@@ -69,6 +70,30 @@ phases of one JSON line each; any failure exits non-zero:
            share over the run's last epoch. Gates: finite losses,
            img_size [1280, 416], one splat launch per train and eval
            batch, the splat as in the splat phase.
+  detect_cli  detect and evaluate from files (``cli.detect.main``,
+           ``cli.evaluate.main``, in this process) on the data phase's tree
+           with the device-mode run's last checkpoint (its EMA):
+           detect_cli_device, configs/rtm3d_dla34_kitti_tpu.yaml as it stands
+           (bf16, device warp, 4 workers) over the 128 train frames at batch
+           32: device and wall images/s, each batch's call and the loop's
+           wait for it; gates: a result file per frame, img_size [1280, 416],
+           2 LM launches per batch, each launch against the plain LM on its
+           own lanes (M = 6,400 and 9,600) as in the lm phases; then those
+           shapes on synthetic lanes (lm_M6400_prior20, lm_M9600_prior0).
+           detect_cli_parity,
+           configs/rtm3d_dla34_kitti.yaml (fp32, TF32 off, host resampling),
+           4 test frames at batch 3, the score and residual thresholds lifted
+           and the checkpoint's vertex head set to draw a car (so the LM
+           converges), on the card and on the CPU: the lines matched by
+           (class, 2D box) within PARITY_GATE; witnesses on the card, the
+           plain LM in the kernel's place (the kernel's lines within
+           PARITY_GATE of its) and the kernel run wrong on purpose (no
+           prior, half the prior, 2 and 4 iterations), each of which must
+           leave PARITY_GATE. evaluate, ``--skip-detect``
+           over the test split: the parity run's results and the ground
+           truth written as results (score 1.0); gates: 36 finite keys, 100
+           on every key with a valid ground-truth box, the same table with
+           the plain overlap; the seconds of each.
 Then the seconds of each phase, the kernels line, the nvidia-smi line and,
 last, {"ok": true, ...}. Needs one CUDA device; without one it exits
 non-zero and prints no result.
@@ -92,6 +117,7 @@ version once, untimed. A line per record; all of them go to FILE
 from __future__ import annotations
 
 import argparse
+import functools
 import itertools
 import json
 import os
@@ -107,8 +133,8 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from rtm3d_tpu_torch.utils.measure import (
     BATCH, FRAME_H, FRAME_W, ITERS, K_KITTI, PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS, TOPK,
-    TRAIN_BATCH, TRAIN_OBJS, cuda_time_ms, kernel_device_ms, lm_agreement, nvidia_smi,
-    splat_edge_inputs, state_tensors, synthetic_labels, synthetic_lanes, unequal,
+    TRAIN_BATCH, TRAIN_OBJS, compare_result_dirs, cuboid_vertex_bias, cuda_time_ms, kernel_device_ms,
+    lm_agreement, nvidia_smi, splat_edge_inputs, state_tensors, synthetic_labels, synthetic_lanes, unequal,
 )
 
 H, W = FRAME_H, FRAME_W
@@ -119,6 +145,17 @@ DATA_TRAIN, DATA_TEST, KITTI_HW = 128, 20, (375, 1242)  # frames of the data pha
 KITTI_RECT = [1280, 416]  # IS_RECT's input on KITTI-sized frames
 TRAIN_WARMUP, TRAIN_TIMED, LOSS_FALL_STEPS = 3, 10, 20
 AB_LM_REPS, AB_SPLAT_REPS = 20, 100
+DETECT_BATCH = 32  # detect_cli_device: the train split's 128 frames in 4 batches
+PARITY_FRAMES, PARITY_BATCH = 4, 3  # detect_cli_parity: 2 batches, the second padded
+# detect_cli_parity: GPU against CPU, on converged boxes 20-28 m deep: class
+# and box to the format's last digit on >= 99% of lines, the score (4
+# decimals) on all; the largest |d| of angles, dim and loc 5x what an H100
+# gives (0.01, 0.02, 0.08). The plain LM in the kernel's place on the card
+# parts from the CPU as far (0.01, 0.01, 0.08), and from the kernel by 0.01,
+# 0.01, 0.07: rounding alone moves a fit whose depth the objective barely
+# fixes. Kernels made wrong (no prior, half the prior, 2 or 4 iterations)
+# part by at least 0.91, 2.64 and 9.13, which the gate must catch.
+PARITY_GATE = {"box_agree_share": 0.99, "score": 1e-4 + 1e-9, "angle": 0.05, "dim": 0.1, "loc": 0.4}
 
 
 def emit(phase: str, **fields) -> None:
@@ -169,6 +206,46 @@ def lm_phase(lm, uv, x0, kp, n_det: int, prior_weight: float) -> dict:
         raise AssertionError(f"LM kernel disagrees with its plain version: {rec}")
     rec["x"], rec["cost"] = xk, ck
     return rec
+
+
+def held_agreement(ck, cr, n_det: int, prior_weight: float):
+    """``lm_agreement`` of kernel and plain costs as the gates hold it: per
+    lane at the prior, per detection (the least cost over its inits, ``n_det``
+    detections) without it."""
+    if prior_weight > 0:
+        return lm_agreement(ck, cr)
+    return lm_agreement(ck.reshape(-1, n_det).min(0), cr.reshape(-1, n_det).min(0))
+
+
+def lm_held(lm, calls, n_det: int) -> list:
+    """Each LM call kept from a detect run, ``(uv, x0, kp, iters, lam0,
+    prior_weight, kernel cost)``, against the plain version on the same lanes
+    (``held_agreement``)."""
+    out = []
+    for uv, x0, kp, iters, lam0, pw, cost in calls:
+        ck = cost[0].cpu().numpy()
+        cr = lm.lm_solve_reference(uv, x0, kp, iters, lam0, pw)[1][0].cpu().numpy()
+        a = held_agreement(ck, cr, n_det, pw)
+        out.append({"M": uv.shape[1], "prior_weight": pw, "finite": bool(np.isfinite(ck).all()),
+                    "accept_agreement": a[0], "cost_within_1e-3": a[1], "max_abs_cost_diff_accepted": a[2],
+                    "accepted_frac": float((cr < 0.1).mean()),
+                    # reported, not gated: every lane, accepted or not
+                    "all_lanes_cost_within_1e-3_rel": float(
+                        (np.abs(ck - cr) <= 1e-3 * np.maximum(np.abs(cr), 1.0)).mean())})
+    return out
+
+
+def lm_detect_pair(lm, n_det: int, dim_ref, prior_weight: float, seed: int = 0) -> tuple:
+    """The detect path's two LM calls (decode/solve3d.py) on synthetic lanes
+    of ``n_det`` detections, each through ``lm_phase``: 2 inits at the prior,
+    then 3 inits without it, the third being the first call's best solution."""
+    uv, x0, kp = synthetic_lanes(np.random.RandomState(seed), n_det, dim_ref)
+    uv2, x02, kp2 = (t[:, : 2 * n_det].contiguous() for t in (uv, x0, kp))
+    first = lm_phase(lm, uv2, x02, kp2, n_det, prior_weight)
+    best = torch.from_numpy(first.pop("cost").reshape(2, n_det).argmin(0)).cuda()
+    x_prior = first.pop("x").reshape(8, 2, n_det).gather(1, best[None, None].expand(8, 1, n_det))[:, 0]
+    second = lm_phase(lm, uv, torch.cat([x02, x_prior], 1).contiguous(), kp, n_det, 0.0)
+    return first, second
 
 
 def logits_phase(cfg_base, nn_model) -> None:
@@ -596,9 +673,194 @@ def data_phase(splat, load_config, generate_kitti, cli_train) -> tuple:
     parent_batches("host", "rtm3d_dla34_kitti.yaml", out, 3, "data_profile_host")
     del out
     torch.cuda.empty_cache()
-    shutil.rmtree(os.path.join(root, "weights_device"), ignore_errors=True)
     shutil.rmtree(os.path.join(root, "weights_host"), ignore_errors=True)
-    return recs, splats
+    # the device-mode run's last checkpoint (EMA on) serves the detect_cli phase
+    return recs, splats, tree, os.path.join(save_dir, pointer)
+
+
+def detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree: str, checkpoint: str) -> dict:
+    """Detect and evaluate from files through the port's CLIs, in this
+    process, on the data phase's tree and the device-mode run's checkpoint:
+    detect_cli_device, detect_cli_parity and evaluate (see the module's
+    docstring). Returns the LM launches of the two detect runs on the card
+    and the records."""
+    from rtm3d_tpu_torch.data.kitti import create_dataset
+    from rtm3d_tpu_torch.eval.ap import DIFFICULTY, parse_kitti_line
+    from rtm3d_tpu_torch.train.checkpoint import load_torch_weights
+
+    root = os.path.dirname(tree)
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    recs = {}
+
+    def detect(argv, route=None):
+        """cli.detect.main(argv) and the LM launches it made; with ``route``,
+        every LM call of the run goes through ``route(lm_solve, uv, x0, kp,
+        iters, lam0, prior_weight)`` (solve3d.py looks lm_solve up at each
+        call)."""
+        solve = lm.lm_solve
+        if route is not None:
+            # the kernel's wrapper counts on whatever lm_solve names when it
+            # launches: during the run, the stand-in
+            lm.lm_solve = functools.partial(route, solve)
+        lm.lm_solve.launches = 0
+        try:
+            out = cli_detect.main(argv)
+            torch.cuda.synchronize()
+            launches = lm.lm_solve.launches
+        finally:
+            lm.lm_solve = solve
+        return out, launches
+
+    # detect_cli_device: the TPU config as it stands (bf16, device warp, 4
+    # workers); each LM call's lanes and costs are kept, to hold the kernel
+    # against its plain version at this path's shapes after the run
+    calls = []
+
+    def keep(solve, uv, x0, kp, iters=ITERS, lam0=1e-3, prior_weight=0.0):
+        x, cost = solve(uv, x0, kp, iters, lam0, prior_weight)
+        calls.append((uv, x0, kp, iters, lam0, prior_weight, cost))
+        return x, cost
+
+    device_cfg = os.path.join(configs, "rtm3d_dla34_kitti_tpu.yaml")
+    out_dir = os.path.join(root, "results_device")
+    summary, launches = detect([
+        "--model-config", device_cfg, "--data-path", tree,
+        "--split", "train", "--batch-size", str(DETECT_BATCH), "--checkpoint", checkpoint, "--out-dir", out_dir],
+        keep)
+    dcfg = load_config(device_cfg)
+    n_det = DETECT_BATCH * int(dcfg.DETECTOR.TOPK_CANDIDATES)
+    held = lm_held(lm, calls, n_det)
+    batches = len(summary["batch_s"])
+    steady = summary["batch_s"][1:]
+    rec = {"config": "rtm3d_dla34_kitti_tpu.yaml", "img_size": summary["img_size"], "batch": DETECT_BATCH,
+           "images": summary["images"], "batches": batches, "result_files": len(os.listdir(out_dir)),
+           "device_images_per_s": summary["device_images_per_s"], "wall_images_per_s": summary["wall_images_per_s"],
+           "steady_device_images_per_s": DETECT_BATCH * len(steady) / sum(steady) if steady else None,
+           "device_s": summary["device_s"], "wall_s": summary["wall_s"],
+           "outside_detect_share": 1.0 - summary["device_s"] / summary["wall_s"],
+           "batch_ms": [1e3 * t for t in summary["batch_s"]], "wait_ms": [1e3 * t for t in summary["wait_s"]],
+           "first_wait_ms": 1e3 * summary["wait_s"][0], "lm_launches": launches, "lm_held": held}
+    recs["detect_cli_device"] = rec
+    emit("detect_cli_device", **rec)
+    if (summary["images"] != DATA_TRAIN or rec["result_files"] != DATA_TRAIN or summary["img_size"] != KITTI_RECT
+            or launches != 2 * batches or len(held) != launches):
+        raise AssertionError(f"detect_cli_device: expected a result file for each of {DATA_TRAIN} frames, "
+                             f"img_size {KITTI_RECT} and 2 LM launches per batch: {rec}")
+    if not all(h["finite"] and h["accept_agreement"] >= 0.999 and h["cost_within_1e-3"] >= 0.999 for h in held):
+        raise AssertionError(f"detect_cli_device: the LM kernel disagrees with its plain version: {held}")
+    # a barely trained network's lanes are accepted nowhere, so the same
+    # shapes again on synthetic lanes that straddle the accept threshold
+    lm_detect_pair(lm, n_det, np.asarray(dcfg.DETECTOR.dim_ref, np.float32), float(dcfg.DETECTOR.DIM_PRIOR_WEIGHT), 1)
+
+    # detect_cli_parity: the host config (fp32, TF32 off), 4 test frames at
+    # batch 3 (a padded tail), on the card and on the CPU with the same
+    # weights: the checkpoint's, its vertex head set to draw a car
+    with open(os.path.join(tree, "ImageSets", "test.txt")) as f:
+        test_names = sorted(f.read().split())
+    with open(os.path.join(tree, "ImageSets", "parity.txt"), "w") as f:
+        f.write("\n".join(test_names[:PARITY_FRAMES]) + "\n")
+    host_cfg = os.path.join(configs, "rtm3d_dla34_kitti.yaml")
+    lifted = ["DETECTOR.SCORE_THRESH", "0.0", "DETECTOR.RESIDUAL_THRESH", "1e9"]
+    cfg = load_config(host_cfg, lifted)
+    K = create_dataset(tree, cfg, is_training=False, split="parity")[0]["calib"].reshape(3, 3)
+    sd = load_torch_weights(checkpoint)[0]
+    sd["detect_header.offset_fr_main_header.offset_fr_main_head.weight"].zero_()
+    sd["detect_header.offset_fr_main_header.offset_fr_main_head.bias"].copy_(torch.from_numpy(cuboid_vertex_bias(K)))
+    weights = os.path.join(root, "parity_weights.pt")
+    torch.save(sd, weights)
+    argv = ["--model-config", host_cfg, "--data-path", tree, "--split", "parity", "--batch-size",
+            str(PARITY_BATCH), "--checkpoint", weights]
+    gpu_dir, cpu_dir = os.path.join(root, "results_parity_gpu"), os.path.join(root, "results_parity_cpu")
+    gpu, parity_launches = detect(argv + ["--out-dir", gpu_dir, "--set", *lifted])
+    t0 = time.perf_counter()
+    cli_detect.main(argv + ["--out-dir", cpu_dir, "--device", "cpu", "--set", *lifted])
+    cpu_s = time.perf_counter() - t0
+    names = test_names[:PARITY_FRAMES]
+    cmp = compare_result_dirs(cpu_dir, gpu_dir, names)
+    # witnesses on the card, each against the CPU's lines: the plain LM in
+    # the kernel's place (what the card's rounding alone moves), and the
+    # kernel run wrong on purpose (what a fault in it would move)
+    routes = {
+        "plain_on_card": lambda solve, uv, x0, kp, iters=ITERS, lam0=1e-3, prior_weight=0.0:
+            lm.lm_solve_reference(uv, x0, kp, iters, lam0, prior_weight),
+        "kernel_no_prior": lambda solve, uv, x0, kp, iters=ITERS, lam0=1e-3, prior_weight=0.0:
+            solve(uv, x0, kp, iters, lam0, 0.0),
+        "kernel_half_prior": lambda solve, uv, x0, kp, iters=ITERS, lam0=1e-3, prior_weight=0.0:
+            solve(uv, x0, kp, iters, lam0, prior_weight / 2),
+        "kernel_iters4": lambda solve, uv, x0, kp, iters=ITERS, lam0=1e-3, prior_weight=0.0:
+            solve(uv, x0, kp, 4, lam0, prior_weight),
+        "kernel_iters2": lambda solve, uv, x0, kp, iters=ITERS, lam0=1e-3, prior_weight=0.0:
+            solve(uv, x0, kp, 2, lam0, prior_weight),
+    }
+    witnesses, witness_launches = {}, {}
+    for name, route in routes.items():
+        wdir = os.path.join(root, f"results_parity_{name}")
+        witness_launches[name] = detect(argv + ["--out-dir", wdir, "--set", *lifted], route)[1]
+        witnesses[name] = compare_result_dirs(cpu_dir, wdir, names)
+    # the kernel against the plain LM on the same card: the kernel alone
+    kernel_vs_plain = compare_result_dirs(os.path.join(root, "results_parity_plain_on_card"), gpu_dir, names)
+    fields = ("angle", "dim", "loc")
+    # a kernel made wrong must part from the CPU by more than the gate
+    caught = {n: any(w["max_abs"][k] > PARITY_GATE[k] for k in fields) for n, w in witnesses.items()
+              if n != "plain_on_card"}
+    rec = {"config": "rtm3d_dla34_kitti.yaml", "frames": PARITY_FRAMES, "batch": PARITY_BATCH,
+           "img_size": gpu["img_size"], "batches": len(gpu["batch_s"]), "lm_launches": parity_launches,
+           "cpu_run_s": cpu_s, **cmp, "gate": PARITY_GATE,
+           "witnesses": {n: {"max_abs": w["max_abs"], "pose_agree_share": w["pose_agree_share"],
+                             "lines": w["lines_got"], "lm_launches": witness_launches[n]} for n, w in witnesses.items()},
+           "kernel_vs_plain_on_card": {"max_abs": kernel_vs_plain["max_abs"],
+                                       "pose_agree_share": kernel_vs_plain["pose_agree_share"]},
+           "gate_catches": caught}
+    recs["detect_cli_parity"] = rec
+    emit("detect_cli_parity", **rec)
+    worst = cmp["max_abs"]
+    if (cmp["lines"] != cmp["lines_got"] or cmp["lines"] != PARITY_FRAMES * int(cfg.DETECTOR.TOPK_CANDIDATES)
+            or cmp["box_agree_share"] < PARITY_GATE["box_agree_share"] or parity_launches != 2 * len(gpu["batch_s"])
+            or any(worst[k] > PARITY_GATE[k] for k in ("score", *fields))):
+        raise AssertionError(f"detect_cli_parity: the card's result lines disagree with the CPU's: {rec}")
+    if any(kernel_vs_plain["max_abs"][k] > PARITY_GATE[k] for k in ("score", *fields)):
+        raise AssertionError(f"detect_cli_parity: the kernel's lines disagree with the plain LM's on the card: {rec}")
+    if witness_launches["plain_on_card"] != 0 or not all(caught.values()):
+        raise AssertionError(f"detect_cli_parity: a kernel made wrong stays within the gate: {rec}")
+
+    # evaluate: the parity run's results and the ground truth written as
+    # results (score 1.0), over the test split, by the CLI (C++ overlap);
+    # then the same table with the plain overlap
+    gt_dir = os.path.join(tree, "training", "label_2")
+    gt_results = os.path.join(root, "results_gt")
+    os.makedirs(gt_results, exist_ok=True)
+    for name in test_names:
+        with open(os.path.join(gt_dir, f"{name}.txt")) as f:
+            lines = [l + " 1.0000" for l in f.read().splitlines() if l]
+        with open(os.path.join(gt_results, f"{name}.txt"), "w") as f:
+            f.write("\n".join(lines) + ("\n" if lines else ""))
+    ev = ["--model-config", host_cfg, "--data-path", tree, "--split", "test", "--skip-detect"]
+    t0 = time.perf_counter()
+    table = cli_evaluate.main(ev + ["--out-dir", gpu_dir])
+    cpp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = cli_evaluate.score(cfg, gt_dir, gpu_dir, test_names, impl="plain")
+    plain_s = time.perf_counter() - t0
+    gt_table = cli_evaluate.main(ev + ["--out-dir", gt_results])
+    # the keys with a valid ground-truth box: each must score 100 on itself
+    gts = [parse_kitti_line(l, False) for n in test_names
+           for l in open(os.path.join(gt_dir, f"{n}.txt")).read().splitlines() if l]
+    valid = [f"{c}_{m}_{d}" for c in cfg.DATASET.OBJs for d, (h, occ, trunc) in DIFFICULTY.items()
+             if any(o["type"] == c and o["bbox"][3] - o["bbox"][1] >= h and o["occluded"] <= occ
+                    and o["truncated"] <= trunc for o in gts) for m in ("bbox", "aos", "bev", "3d")]
+    rec = {"split": "test", "images": len(test_names), "keys": len(table), "cpp_s": cpp_s, "plain_s": plain_s,
+           "plain_equal": plain == table, "table": table, "gt_keys_with_valid_gt": len(valid),
+           "gt_min_on_valid": min(gt_table[k] for k in valid) if valid else None}
+    recs["evaluate"] = rec
+    emit("evaluate", **rec)
+    if (len(table) != 36 or not all(np.isfinite(v) for v in list(table.values()) + list(gt_table.values()))
+            or not valid or any(gt_table[k] != 100.0 for k in valid) or not rec["plain_equal"]):
+        raise AssertionError(f"evaluate: a key is not finite, the ground truth does not score 100 on itself, "
+                             f"or the plain overlap gives another table: {rec}")
+    shutil.rmtree(os.path.dirname(os.path.dirname(checkpoint)), ignore_errors=True)  # weights_device
+    os.remove(weights)
+    return {"launches": recs["detect_cli_device"]["lm_launches"] + parity_launches, "records": recs,
+            "max_abs_err": max(h["max_abs_cost_diff_accepted"] for h in held)}
 
 
 def ptxas_lines(log: str) -> list:
@@ -634,8 +896,7 @@ def ab_worker(root: str, timed: bool) -> None:
         call = lambda: lm.lm_solve(u, x, k, iters=ITERS, prior_weight=pw)
         ck = call()[1][0].cpu().numpy()
         cr = lm.lm_solve_reference(u, x, k, iters=ITERS, prior_weight=pw)[1][0].cpu().numpy()
-        # held as lm_phase holds them: per lane at the prior, per detection without
-        held = lm_agreement(ck, cr) if pw > 0 else lm_agreement(ck.reshape(-1, n).min(0), cr.reshape(-1, n).min(0))
+        held = held_agreement(ck, cr, n, pw)
         entry = {"M": u.shape[1], "prior_weight": pw, "finite": bool(np.isfinite(ck).all()),
                  "accept_agreement": held[0], "cost_within_1e-3": held[1]}
         if timed:
@@ -776,6 +1037,8 @@ def main() -> int:
         return kernel_ab(args.kernel_ab, args.check_only, args.out)
     from rtm3d_tpu_torch import default_config, load_config
     from rtm3d_tpu_torch.api import Detector
+    from rtm3d_tpu_torch.cli import detect as cli_detect
+    from rtm3d_tpu_torch.cli import evaluate as cli_evaluate
     from rtm3d_tpu_torch.cli import train as cli_train
     from rtm3d_tpu_torch.data.synthetic import generate_kitti
     from rtm3d_tpu_torch.data.targets import heatmap_inputs
@@ -804,11 +1067,15 @@ def main() -> int:
          capability=list(torch.cuda.get_device_capability(0)))
 
     built = kernel_build.build()  # one nvcc per source, all at once
+    # the AP evaluator's host C++ overlap, so that the evaluate phase's
+    # seconds hold no build
+    host = kernel_build.build_host(["geometry"])
     ptxas = {n: ptxas_lines(b["log"]) for n, b in built.items()}
     spills = {n: [l for l in lines if re.search(r"[1-9]\d* bytes spill (stores|loads)", l)]
               for n, lines in ptxas.items()}
     emit("build", seconds=time.perf_counter() - t_phase,
-         kernels={n: {"seconds": b["seconds"], "ptxas": ptxas[n]} for n, b in built.items()})
+         kernels={n: {"seconds": b["seconds"], "ptxas": ptxas[n]} for n, b in built.items()},
+         host={n: {"seconds": b["seconds"], "library": str(b["path"])} for n, b in host.items()})
     if not all(any("registers" in l for l in lines) for lines in ptxas.values()):
         raise AssertionError(f"build: a kernel's ptxas report is missing: {ptxas}")
     if any(spills.values()):
@@ -825,14 +1092,7 @@ def main() -> int:
     n = BATCH * TOPK
     uv, x0, kp = synthetic_lanes(np.random.RandomState(0), n, dim_ref)
     lm_phase(lm, uv, x0, kp, n, prior)  # M = 38,400 at the prior
-    # the detect path's two calls (decode/solve3d.py): 2 inits at the prior,
-    # then 3 inits without it, the third being the first call's best solution
-    uv2, x02, kp2 = (t[:, : 2 * n].contiguous() for t in (uv, x0, kp))
-    first = lm_phase(lm, uv2, x02, kp2, n, prior)
-    best = torch.from_numpy(first.pop("cost").reshape(2, n).argmin(0)).cuda()
-    x_prior = first.pop("x").reshape(8, 2, n).gather(1, best[None, None].expand(8, 1, n))[:, 0]
-    x03 = torch.cat([x02, x_prior], 1).contiguous()
-    second = lm_phase(lm, uv, x03, kp, n, 0.0)
+    first, second = lm_detect_pair(lm, n, dim_ref, prior)  # M = 25,600 and 38,400
     phase_done("lm")
     logits_phase(cfg, nn_model)
     phase_done("logits")
@@ -850,8 +1110,10 @@ def main() -> int:
     phase_done("train_fp32")
     trained = train_phase(nn_model, step_mod, state_mod, load_config, lm, splat)
     phase_done("train_and_profile")
-    from_files, data_splats = data_phase(splat, load_config, generate_kitti, cli_train)
+    from_files, data_splats, tree, checkpoint = data_phase(splat, load_config, generate_kitti, cli_train)
     phase_done("data")
+    from_files_detect = detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree, checkpoint)
+    phase_done("detect_cli")
     emit("seconds", **seconds, total=round(sum(seconds.values()), 2))
 
     pair = (first, second)
@@ -860,9 +1122,13 @@ def main() -> int:
         "route": "cuda",
         "source": "rtm3d_tpu_torch/csrc/lm_solver.cu",
         "replaces": LM_REPLACES,
-        "launches": served["lm_launches"],
-        # per detect step: the pair of launches at M=25,600 (prior 20) and M=38,400 (prior 0)
-        "max_abs_err": max(r["detection_max_abs_cost_diff_accepted"] for r in pair),
+        # 2 per detect call: the serve phase's calls and the detect CLI's batches
+        "launches": served["lm_launches"] + from_files_detect["launches"],
+        "launches_by_path": {"serve": served["lm_launches"], "detect_cli": from_files_detect["launches"]},
+        # the largest cost gap where both accept: the lm phases' lanes and
+        # every launch of detect_cli_device; the times are those of the
+        # pair of launches at M=25,600 (prior 20) and M=38,400 (prior 0)
+        "max_abs_err": max([r["detection_max_abs_cost_diff_accepted"] for r in pair] + [from_files_detect["max_abs_err"]]),
         "ms": sum(r["kernel_ms"] for r in pair),
         "plain_ms": sum(r["plain_ms"] for r in pair),
         "bound_ms": sum(r["bound_ms"] for r in pair),

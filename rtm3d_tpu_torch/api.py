@@ -19,7 +19,7 @@ from torch import nn
 
 from rtm3d_tpu_torch.config import Config, load_config
 from rtm3d_tpu_torch.nn.model import create_model
-from rtm3d_tpu_torch.train.checkpoint import load_reference_checkpoint
+from rtm3d_tpu_torch.train.checkpoint import load_detect_weights
 from rtm3d_tpu_torch.train.step import make_detect_step
 
 
@@ -56,24 +56,26 @@ class Detector:
         with_3d: bool = True,
         device=None,
     ) -> "Detector":
-        """Build from a YAML config and a reference ``.pt`` checkpoint.
-        Flax msgpack checkpoints are not read yet (ROADMAP.md, queue A)."""
+        """Build from a YAML config and a checkpoint (``checkpoint`` or
+        ``DETECTOR.CHECKPOINT``), read by ``train.checkpoint.
+        load_detect_weights``: a flax msgpack file of the JAX package (its
+        EMA preferred), a ``CheckPointer`` file of the port (its EMA), or a
+        reference ``.pt`` (suffix-matched). A path that does not exist
+        leaves random weights, with a warning, as in the JAX package."""
         cfg = load_config(yaml_path, overrides)
         if input_size is not None:
             cfg.INPUT_SIZE = tuple(input_size)
-        path = checkpoint or cfg.DETECTOR.CHECKPOINT
-        if str(path).endswith(".msgpack"):
-            raise NotImplementedError(
-                f"{path}: flax msgpack checkpoints are not read by the port yet "
-                "(ROADMAP.md, queue A); pass a reference .pt checkpoint"
-            )
-        return cls(cfg, load_reference_checkpoint(path), device=device, with_3d=with_3d)
+        model = create_model(cfg)
+        load_detect_weights(checkpoint or cfg.DETECTOR.CHECKPOINT, model)
+        return cls(cfg, model, device=device, with_3d=with_3d)
 
-    def __call__(self, images, K) -> Dict[str, np.ndarray]:
+    def __call__(self, images, K, warp=None, border=None) -> Dict[str, np.ndarray]:
         """images: (B, H, W, 3) uint8 or normalised float32 (numpy or
-        tensor); K: (B, 3, 3) intrinsics in the same frame. Returns host
+        tensor); K: (B, 3, 3) intrinsics in the same frame. With ``warp``
+        (B, 6) and ``border`` (B, 3) the images are raw canvases the step
+        resamples on the device (the device-warp raw mode). Returns host
         numpy arrays."""
-        out = self._detect(images, K)
+        out = self._detect(images, K, warp=warp, border=border)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     def to_objects(self, det: Dict[str, np.ndarray]) -> List[List[dict]]:

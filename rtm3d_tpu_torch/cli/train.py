@@ -14,8 +14,10 @@ the run raises unless it is given ``--device cpu``.
 
 ``TRAINING.CHECKPOINT_MODE`` is ``start``, ``resume`` (from the
 ``last_checkpoint`` pointer under ``TRAINING.WEIGHTS/<BACKBONE>``, when
-there is one) or ``pretrained`` (a reference ``.pt`` in
-``TRAINING.CHECKPOINT_FILE``, loaded strict; any other suffix raises).
+there is one) or ``pretrained`` (a ``.pt``/``.pth``/``.pkl`` file in
+``TRAINING.CHECKPOINT_FILE``, a whole model or a part of one such as an
+ImageNet backbone, imported by longest-suffix name matching as the JAX CLI
+does, :162-171; any other suffix raises).
 
 Resume is exact: the model's parameters and BN buffers, the optimizer
 state, the EMA shadow, ``step`` and ``updates`` come back bit for bit, and
@@ -42,7 +44,7 @@ from rtm3d_tpu_torch.config import load_config
 from rtm3d_tpu_torch.data.kitti import create_dataset
 from rtm3d_tpu_torch.data.loader import DataLoader, prefetch_to_device
 from rtm3d_tpu_torch.nn.model import create_model
-from rtm3d_tpu_torch.train.checkpoint import CheckPointer, load_reference_checkpoint
+from rtm3d_tpu_torch.train.checkpoint import CheckPointer, import_reference_weights, load_torch_weights
 from rtm3d_tpu_torch.train.state import TrainState
 from rtm3d_tpu_torch.train.step import make_eval_loss_step, make_train_step, resolve_device
 
@@ -105,10 +107,10 @@ def _model_state(cfg, seed: int, device, max_iters: int):
         raise ValueError(f"TRAINING.CHECKPOINT_MODE {cfg.TRAINING.CHECKPOINT_MODE!r} is not one of {MODES}")
     if mode == "pretrained":
         path = str(cfg.TRAINING.CHECKPOINT_FILE)
-        if not path.endswith(".pt"):
-            raise ValueError(f"pretrained weights must be a reference .pt file, got {path!r}")
-        model.load_state_dict(load_reference_checkpoint(path), strict=True)
-        print(f"loaded pretrained weights from {path}")
+        if not path.endswith((".pt", ".pth", ".pkl")):
+            raise ValueError(f"pretrained weights must be a .pt, .pth or .pkl file, got {path!r}")
+        report = import_reference_weights(model, load_torch_weights(path)[0])
+        print(f"imported {len(report['loaded'])} tensors from {path}; {len(report['missed'])} missed")
     return mode, TrainState.create(model, cfg, device=device, max_iters=max_iters)
 
 

@@ -60,3 +60,39 @@ def fill_rectangle(img: np.ndarray, p1: Tuple[int, int], p2: Tuple[int, int], co
 def fill_circle(img: np.ndarray, center: Tuple[int, int], radius: int, color) -> None:
     """Filled circle, in place."""
     cv2.circle(img, center, radius, color, -1)
+
+
+# -- the detection drawings of utils/visual.py, as the JAX package draws them
+# (rtm3d_tpu/utils/visual.py): cv2's calls with its arguments, in place --
+FONT_SIMPLEX, FONT_PLAIN, LINE_8, LINE_AA = cv2.FONT_HERSHEY_SIMPLEX, cv2.FONT_HERSHEY_PLAIN, cv2.LINE_8, cv2.LINE_AA
+
+
+def rectangle(img, p1, p2, color, thickness: int = 1, line_type: int = LINE_8) -> None:
+    cv2.rectangle(img, p1, p2, color, thickness, line_type)
+
+
+def line(img, p1, p2, color, thickness: int = 1) -> None:
+    cv2.line(img, p1, p2, color, thickness)
+
+
+def polylines(img, points: np.ndarray, closed: bool, color, thickness: int = 1) -> None:
+    cv2.polylines(img, [points], closed, color, thickness)
+
+
+def fill_poly(img, points: np.ndarray, color) -> None:
+    cv2.fillPoly(img, [points], color)
+
+
+def blend(img, overlay, alpha: float) -> None:
+    """``img = (1 - alpha) img + alpha overlay``, rounded as cv2 rounds."""
+    cv2.addWeighted(img, 1.0 - alpha, overlay, alpha, 0.0, dst=img)
+
+
+def put_text(img, text: str, org, font: int, scale: float, color, thickness: int = 1,
+             line_type: int = LINE_8) -> None:
+    cv2.putText(img, text, org, font, scale, color, thickness, line_type)
+
+
+def text_size(text: str, font: int, scale: float, thickness: int) -> Tuple[int, int]:
+    """(width, height) of ``text`` drawn by ``put_text``."""
+    return cv2.getTextSize(text, font, fontScale=scale, thickness=thickness)[0]

@@ -40,12 +40,15 @@ def generate_kitti(
     img_hw=(192, 256),
     max_objs: int = 5,
     seed: int = 20,
+    images: bool = True,
 ) -> str:
-    """Write a synthetic KITTI tree under ``root``. Returns ``root``."""
+    """Write a synthetic KITTI tree under ``root``. Returns ``root``. With
+    ``images=False`` it writes labels and calibs only and draws no pixels,
+    so its labels are those of another draw than the tree with images."""
     rng = np.random.RandomState(seed)
     H, W = img_hw
     os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
-    for sub in ("image_2", "label_2", "calib"):
+    for sub in ("image_2", "label_2", "calib") if images else ("label_2", "calib"):
         os.makedirs(os.path.join(root, "training", sub), exist_ok=True)
 
     f = 0.7 * W
@@ -54,9 +57,10 @@ def generate_kitti(
 
     names = [f"{i:06d}" for i in range(num_train + num_test)]
     for name in names:
-        img = (rng.rand(H, W, 3) * 40 + 90).astype(np.uint8)
-        # ground/sky gradient for texture
-        img[: H // 2] = (img[: H // 2].astype(np.int32) + 40).clip(0, 255)
+        if images:
+            img = (rng.rand(H, W, 3) * 40 + 90).astype(np.uint8)
+            # ground/sky gradient for texture
+            img[: H // 2] = (img[: H // 2].astype(np.int32) + 40).clip(0, 255)
         lines = []
         n = rng.randint(1, max_objs + 1)
         for _ in range(n):
@@ -80,16 +84,17 @@ def generate_kitti(
             x2c, y2c = min(W - 1.0, x2), min(H - 1.0, y2)
             if x2c - x1c < 6 or y2c - y1c < 6:
                 continue
-            # a filled box + centre dot so the image carries signal
-            color = tuple(int(c) for c in rng.randint(120, 255, 3))
-            image_io.fill_rectangle(img, (int(x1c), int(y1c)), (int(x2c), int(y2c)), color)
-            image_io.fill_circle(img, (int((x1c + x2c) / 2), int((y1c + y2c) / 2)), 2, (255, 255, 255))
+            if images:  # a filled box + centre dot so the image carries signal
+                color = tuple(int(c) for c in rng.randint(120, 255, 3))
+                image_io.fill_rectangle(img, (int(x1c), int(y1c)), (int(x2c), int(y2c)), color)
+                image_io.fill_circle(img, (int((x1c + x2c) / 2), int((y1c + y2c) / 2)), 2, (255, 255, 255))
             alpha = ry - np.arctan2(x, z)
             lines.append(
                 f"{cls_name} 0.00 0 {alpha:.2f} {x1c:.2f} {y1c:.2f} {x2c:.2f} "
                 f"{y2c:.2f} {h:.2f} {w:.2f} {l:.2f} {x:.2f} {y + h / 2:.2f} {z:.2f} {ry:.2f}"
             )
-        image_io.imwrite_png(os.path.join(root, "training", "image_2", f"{name}.png"), img)
+        if images:
+            image_io.imwrite_png(os.path.join(root, "training", "image_2", f"{name}.png"), img)
         with open(os.path.join(root, "training", "label_2", f"{name}.txt"), "w") as fh:
             fh.write("\n".join(lines) + ("\n" if lines else ""))
         P2 = np.hstack([K, np.zeros((3, 1), np.float32)])

@@ -11,12 +11,23 @@
   ``::_convert_array_back`` (:375-390): conv HWIO -> OIHW, transposed conv
   (kh, kw, out, in) -> (in, out, kh, kw), BN scale/bias/mean/var ->
   weight/bias/running_mean/running_var.
-- ``load_reference_checkpoint``: a reference ``.pt`` (port of
-  ``load_torch_state_dict``, :305-315). The port's modules carry the
-  reference names, so the result loads with ``strict=True`` as it is.
+- ``load_torch_weights``: a torch weights file as a detector serves it: a
+  ``CheckPointer`` file with the EMA shadow laid over the parameters when
+  the run tracked one (``TrainState.eval_variables``; reference
+  check_point.py:122), any other as a reference ``.pt`` (port of
+  ``load_torch_state_dict``, :305-315; the port's modules carry the
+  reference names).
+- ``read_flax_msgpack`` / ``load_flax_checkpoint``: the JAX package's
+  msgpack checkpoints, read with ``msgpack`` alone (no flax), the EMA
+  preferred, into ``state_dict_from_jax``.
+- ``import_reference_weights``: longest-suffix matching of a partial
+  state_dict, an ImageNet backbone for instance, into the model (port of
+  ``import_torch_weights``, :318-372; reference check_point.py:14-92).
+- ``load_detect_weights``: what the detect CLI and ``Detector.from_config``
+  load, by file kind (``rtm3d_tpu/cli/detect.py:92-130``).
 
-Flax msgpack checkpoints are not read yet, and neither orbax directories
-nor multi-process saves are written (ROADMAP.md, queue A).
+Orbax directories and multi-process saves are neither read nor written
+(ROADMAP.md, queue A: Data-parallel).
 """
 
 from __future__ import annotations
@@ -233,7 +244,9 @@ def state_dict_from_jax(variables: Mapping[str, Any], model: nn.Module) -> Dict[
     sources = {}
     for col in ("params", "batch_stats"):
         for path, val in _flatten(variables.get(col, {})).items():
-            sources[_to_dotted(path)] = np.asarray(val)
+            # a bfloat16 leaf comes as a tensor (numpy has no bfloat16);
+            # its float32 value is exact
+            sources[_to_dotted(path)] = val.float().numpy() if torch.is_tensor(val) else np.asarray(val)
     out, missing = {}, []
     for key, ref in model.state_dict().items():
         if key.endswith("num_batches_tracked"):
@@ -254,11 +267,12 @@ def state_dict_from_jax(variables: Mapping[str, Any], model: nn.Module) -> Dict[
     return out
 
 
-def load_reference_checkpoint(pt_path: str) -> Dict[str, torch.Tensor]:
-    """Read a reference ``.pt`` checkpoint into a plain state_dict (a
-    DataParallel ``module.`` prefix is stripped). Loaded with
-    ``weights_only=True``: tensors and containers only, no pickled code."""
-    obj = torch.load(pt_path, map_location="cpu", weights_only=True)
+def _is_port_checkpoint(obj) -> bool:
+    """True for the payload of a ``CheckPointer.save`` file."""
+    return isinstance(obj, dict) and {"model", "optimizer", "ema", "updates"} <= set(obj)
+
+
+def _reference_weights(obj) -> Dict[str, torch.Tensor]:
     if isinstance(obj, dict) and isinstance(obj.get("model"), dict):
         obj = obj["model"]
     if isinstance(obj, dict) and "state_dict" in obj:
@@ -268,3 +282,168 @@ def load_reference_checkpoint(pt_path: str) -> Dict[str, torch.Tensor]:
         for k, v in obj.items()
         if isinstance(v, torch.Tensor)
     }
+
+
+def _torch_load(path: str):
+    # weights_only: tensors and containers only, no pickled code
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_torch_weights(path: str) -> Tuple[Dict[str, torch.Tensor], bool]:
+    """``(state_dict, used_ema)`` of a torch weights file. A port
+    ``CheckPointer`` file gives its model's parameters and buffers with the
+    EMA shadow, when the run tracked one, in place of the parameters, as
+    ``TrainState.eval_variables`` evaluates them (the reference CheckPointer
+    prefers the EMA model, check_point.py:122); any other file is read as a
+    reference checkpoint."""
+    obj = _torch_load(path)
+    if not _is_port_checkpoint(obj):
+        return _reference_weights(obj), False
+    sd, ema = dict(obj["model"]), obj["ema"]
+    sd.update(ema or {})
+    return sd, bool(ema)
+
+
+# -- flax msgpack, read without flax (flax/serialization.py's format) --
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+
+
+def _flax_array(data: bytes):
+    """An ext payload ``(shape, dtype name, C-order bytes)``: a numpy array,
+    or for ``bfloat16``, which numpy cannot name, a ``torch.bfloat16``
+    tensor over the same bits."""
+    import msgpack
+
+    shape, dtype, buf = msgpack.unpackb(data, raw=True)
+    if dtype == b"bfloat16":
+        bits = np.frombuffer(buf, np.int16).reshape(shape)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return np.frombuffer(buf, np.dtype(dtype.decode())).reshape(shape)
+
+
+def _flax_ext(code: int, data: bytes):
+    import msgpack
+
+    if code == _EXT_NDARRAY:
+        return _flax_array(data)
+    if code == _EXT_NPSCALAR:
+        a = _flax_array(data)
+        return a if torch.is_tensor(a) else a[()]
+    if code == _EXT_COMPLEX:
+        re_, im = msgpack.unpackb(data)
+        return complex(re_, im)
+    raise ValueError(f"msgpack ext type {code} is not one of flax's (1 ndarray, 2 complex, 3 numpy scalar)")
+
+
+def _unchunk(tree):
+    """flax writes leaves over 2**30 bytes as ``{"__msgpack_chunked_array__":
+    True, "shape": {"0": d0, ...}, "chunks": {"0": flat part, ...}}``; this
+    rebuilds each such leaf."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree.get("__msgpack_chunked_array__"):
+        shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+        chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        flat = torch.cat(chunks) if torch.is_tensor(chunks[0]) else np.concatenate(chunks)
+        return flat.reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def read_flax_msgpack(path: str) -> Any:
+    """The tree of a flax msgpack file (``serialization.to_bytes`` or
+    ``msgpack_serialize``): dicts of numpy arrays and scalars, bfloat16
+    leaves as ``torch.bfloat16`` tensors, chunked leaves rebuilt."""
+    import msgpack
+
+    with open(path, "rb") as f:
+        return _unchunk(msgpack.unpackb(f.read(), ext_hook=_flax_ext, raw=False))
+
+
+def load_flax_checkpoint(path: str, model: nn.Module) -> Tuple[Dict[str, torch.Tensor], bool]:
+    """``(state_dict, used_ema)`` of a JAX package checkpoint for ``model``:
+    a full ``CheckPointer`` file (``{"state": {params, batch_stats,
+    opt_state, step, ema_params}, epoch, min_loss}``) or a stripped deploy
+    file (``{params, batch_stats}``, bfloat16 by default). ``ema_params``
+    is served when it is a non-empty dict, as the JAX detect CLI does."""
+    payload = read_flax_msgpack(path)
+    state = payload.get("state", payload)
+    ema = state.get("ema_params")
+    use_ema = isinstance(ema, dict) and len(ema) > 0
+    variables = {"params": ema if use_ema else state["params"], "batch_stats": state.get("batch_stats", {})}
+    return state_dict_from_jax(variables, model), use_ema
+
+
+def import_reference_weights(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
+                             verbose: bool = False) -> Dict[str, list]:
+    """Load ``state_dict`` into ``model`` in place by longest-suffix
+    matching of dotted names; returns ``{"loaded": [(model key, source
+    key)], "missed": [...]}``.
+
+    Each of the model's parameters and BN statistics takes the source key
+    that scores highest: the same name 3x its length, a source name that
+    ends the model's (a backbone-only file) 2x, a model name that ends the
+    source's (a whole-model file into a sub-module) 1x; a ``module.``
+    prefix is stripped. Both sides are torch layouts, so only the shapes
+    are checked. ``num_batches_tracked`` has no JAX counterpart and is
+    left as it is, so that the report counts what the JAX import counts."""
+    current = model.state_dict()
+    new, loaded, missed = dict(current), [], []
+    for key, ref in current.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        best_key, best = None, 0
+        for tk in state_dict:
+            tkn = tk[7:] if tk.startswith("module.") else tk
+            if key == tkn:
+                score = 3 * len(tkn)
+            elif key.endswith("." + tkn):
+                score = 2 * len(tkn)
+            elif tkn.endswith("." + key):
+                score = len(key)
+            else:
+                continue
+            if score > best:
+                best_key, best = tk, score
+        if best_key is None:
+            missed.append(key)
+            continue
+        src = state_dict[best_key]
+        if tuple(src.shape) != tuple(ref.shape):
+            missed.append(f"{key} (shape {tuple(src.shape)} vs {tuple(ref.shape)})")
+            continue
+        new[key] = src.detach().to(ref.dtype)
+        loaded.append((key, best_key))
+        if verbose:
+            print(f"loaded {key:60s} <- {best_key}")
+    model.load_state_dict(new, strict=True)
+    return {"loaded": loaded, "missed": missed}
+
+
+def load_detect_weights(path: Optional[str], model: nn.Module) -> str:
+    """Load the weights a detector serves into ``model``, in place, as the
+    JAX detect CLI's ``load_variables`` does (``rtm3d_tpu/cli/detect.py:
+    92-130``), and return the line it prints:
+
+    - ``.pt``/``.pth``/``.pkl``: ``import_reference_weights`` (suffix
+      match), from a reference checkpoint, or from a port ``CheckPointer``
+      file with its EMA shadow;
+    - a directory: an orbax checkpoint, not read yet;
+    - any other file: a flax msgpack checkpoint, EMA preferred;
+    - a path that does not exist: the model keeps its random weights, with
+      a warning, as in the JAX package."""
+    if path and os.path.isdir(path):
+        raise NotImplementedError(f"{path}: orbax directory checkpoints are not read by the port yet "
+                                  "(ROADMAP.md, queue A: Data-parallel)")
+    if not path or not os.path.exists(path):
+        line = f"WARNING: checkpoint {path} not found; using random init" if path else "no checkpoint; random init"
+    elif path.endswith((".pt", ".pth", ".pkl")):
+        sd, ema = load_torch_weights(path)
+        report = import_reference_weights(model, sd)
+        line = (f"imported {len(report['loaded'])} tensors; {len(report['missed'])} missed"
+                + (" (EMA weights)" if ema else ""))
+    else:
+        sd, ema = load_flax_checkpoint(path, model)
+        model.load_state_dict(sd, strict=True)
+        line = f"loaded checkpoint {path}" + (" (EMA weights)" if ema else "")
+    print(line)
+    return line

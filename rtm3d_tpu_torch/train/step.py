@@ -286,14 +286,18 @@ def attach_3d(det: Dict[str, torch.Tensor], K: torch.Tensor, cfg: Config) -> Dic
 
 def make_detect_step(
     model: nn.Module, cfg: Config, with_3d: bool = True, device=None
-) -> Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
-    """detect_step(images, K) -> detections dict.
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """detect_step(images, K, warp=None, border=None) -> detections dict.
 
     The step holds its own copy of ``model`` on ``device`` (the GPU when
     None), in eval mode, channels_last and cast to ``TPU.COMPUTE_DTYPE`` —
     parameters and BN statistics alike, as the JAX step casts its variables.
-    Decode and the 3D solver run in fp32 on the upcast logits. Inputs on
-    another device are copied to ``device``. Returns fixed (B, TOPK)
+    With ``warp`` (B, 6) the images are raw uint8 canvases, resampled to
+    ``INPUT_SIZE`` and normalised by ``ops/device_warp.py`` with the border
+    colour ``border`` (the device-warp raw mode, ``TPU.DEVICE_WARP``; no
+    photometric step); else uint8 frames are normalised and float frames
+    pass. Decode and the 3D solver run in fp32 on the upcast logits. Inputs
+    on another device are copied to ``device``. Returns fixed (B, TOPK)
     tensors; ``accepted`` combines the score threshold with the solver's
     residual acceptance (model_utils.py:298).
     """
@@ -306,9 +310,14 @@ def make_detect_step(
     down = float(cfg.MODEL.DOWN_SAMPLE)
 
     @torch.inference_mode()
-    def detect_step(images, K):
+    def detect_step(images, K, warp=None, border=None):
         images = torch.as_tensor(images).to(device, non_blocking=True)
         K = torch.as_tensor(K, dtype=torch.float32).to(device, non_blocking=True)
+        if warp is not None:
+            batch = {"image": images, "warp": torch.as_tensor(warp).to(device, non_blocking=True)}
+            if border is not None:
+                batch["border"] = torch.as_tensor(border).to(device, non_blocking=True)
+            images = prepare_images(batch, cfg)
         # NHWC -> an NCHW view with channels_last strides: no copy
         x = normalize_images(images, cfg).permute(0, 3, 1, 2).to(dtype)
         logits = net(x)

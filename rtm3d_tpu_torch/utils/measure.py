@@ -184,3 +184,64 @@ def unequal(a: dict, b: dict) -> list:
         if not same:
             bad.append(k)
     return bad
+
+
+def cuboid_vertex_bias(K, down: float = 4.0) -> np.ndarray:
+    """(16,) vertex offsets in feature pixels, (dx, dy) per vertex in the LM
+    solver's corner order: a car (h, w, l) = (1.53, 1.63, 3.88) at yaw 0.4,
+    centred 25 m ahead on the optical axis of K, projected relative to its
+    centre. As the constant output of the vertex head (``offset_fr_main``,
+    zero weights) it makes every peak regress a near-cuboid (exact on the
+    optical axis), on which the LM converges to a plausible box, where the
+    vertices of random weights fit no cuboid and leave the solve
+    unconverged."""
+    h, w, l, ry, z0 = 1.53, 1.63, 3.88, 0.4, 25.0
+    c, s = np.cos(ry), np.sin(ry)
+    out = []
+    for i in (1, -1):
+        for j in (1, -1):
+            for k in (1, -1):
+                x, y = i * l / 2 * c + k * w / 2 * s, j * h / 2
+                z = -i * l / 2 * s + k * w / 2 * c + z0
+                out += [K[0, 0] * x / z / down, K[1, 1] * y / z / down]
+    return np.array(out, np.float32)
+
+
+def _result_lines(path: str) -> list:
+    with open(path) as f:
+        return [(p[0], np.array(p[1:], np.float64)) for p in (l.split() for l in f.read().splitlines()) if p]
+
+
+def compare_result_dirs(want_dir: str, got_dir: str, names) -> dict:
+    """Two directories of KITTI result files, line against line: each line
+    of ``want_dir`` is matched to the line of ``got_dir`` of its image and
+    class with the nearest 2D box. Returns the line counts, the share of
+    matched lines whose box agrees to the format's last digit (0.01), and
+    the largest |difference| per field group: box, score, angle (alpha and
+    ry, wrapped), dim, loc; the share whose pose agrees to the format's
+    last digit (angles and dim within 0.01, loc within 0.05, the tolerances
+    of the port's CPU tests against the JAX package); and the depths of the
+    matched lines."""
+    n_want = n_got = within = pose_within = 0
+    worst = {"box": 0.0, "score": 0.0, "angle": 0.0, "dim": 0.0, "loc": 0.0}
+    depth = []
+    for name in names:
+        want, got = _result_lines(f"{want_dir}/{name}.txt"), _result_lines(f"{got_dir}/{name}.txt")
+        n_want, n_got = n_want + len(want), n_got + len(got)
+        for cls, w in want:
+            cands = [g for c, g in got if c == cls]
+            if not cands:
+                worst["box"] = float("inf")
+                continue
+            g = min(cands, key=lambda v: np.abs(v[3:7] - w[3:7]).max())
+            box = float(np.abs(g[3:7] - w[3:7]).max())
+            within += box <= 0.01 + 1e-9
+            d = {"box": box, "score": float(abs(g[14] - w[14])),
+                 "angle": float(np.abs(np.angle(np.exp(1j * (g[[2, 13]] - w[[2, 13]])))).max()),
+                 "dim": float(np.abs(g[7:10] - w[7:10]).max()), "loc": float(np.abs(g[10:13] - w[10:13]).max())}
+            worst = {k: max(worst[k], d[k]) for k in worst}
+            pose_within += d["angle"] <= 0.01 + 1e-9 and d["dim"] <= 0.01 + 1e-9 and d["loc"] <= 0.05
+            depth.append(float(w[12]))
+    return {"lines": n_want, "lines_got": n_got, "box_agree_share": within / max(n_want, 1),
+            "pose_agree_share": pose_within / max(n_want, 1), "max_abs": worst,
+            "depth_range": [min(depth), max(depth)] if depth else None}
