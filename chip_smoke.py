@@ -75,10 +75,14 @@ phases of one JSON line each; any failure exits non-zero:
            with the device-mode run's last checkpoint (its EMA):
            detect_cli_device, configs/rtm3d_dla34_kitti_tpu.yaml as it stands
            (bf16, device warp, 4 workers) over the 128 train frames at batch
-           32: device and wall images/s, each batch's call and the loop's
+           32, the checkpoint's vertex head set to draw a car
+           DEVICE_CAR_DEPTH m ahead on the row where a pilot run (the car on
+           the optical axis) finds the network's peaks (so that the LM
+           converges and accepts lanes): device and wall images/s, each batch's call and the loop's
            wait for it; gates: a result file per frame, img_size [1280, 416],
-           2 LM launches per batch, each launch against the plain LM on its
-           own lanes (M = 6,400 and 9,600) as in the lm phases; then those
+           2 LM launches per batch, each launch on its own lanes (M = 6,400
+           and 9,600) with at least one lane accepted, against the plain LM
+           as in the lm phases (accept decisions, accepted costs); then those
            shapes on synthetic lanes (lm_M6400_prior20, lm_M9600_prior0).
            detect_cli_parity,
            configs/rtm3d_dla34_kitti.yaml (fp32, TF32 off, host resampling),
@@ -94,6 +98,30 @@ phases of one JSON line each; any failure exits non-zero:
            truth written as results (score 1.0); gates: 36 finite keys, 100
            on every key with a valid ground-truth box, the same table with
            the plain overlap; the seconds of each.
+  resnet18 configs/rtm3d_resnet18_kitti.yaml as shipped (fp32, TF32 off,
+           IS_RECT, so 1280x416 on these frames; pretrained with no file)
+           on the data phase's tree: resnet18_train, cli.train.main for 1
+           epoch at b16 (8 steps, 2 eval batches; gates as the data phase's
+           runs, and that it trained from init), step ms and peak memory,
+           the splat against its plain version on the first batch's labels;
+           resnet18_detect, cli.detect.main over the 128 train frames at b16
+           with no --checkpoint: DETECTOR.CHECKPOINT's .msgpack does not
+           exist and the trained .pt beside it (its vertex head set as in
+           detect_cli_device) must be served; gates: a result file per
+           frame, 2 LM launches per batch, each held against the plain LM;
+           export_detect_{decode,forward,decode_cpu_made}, cli.export.main
+           of that .pt at b16 (with and without --with-decode on the card,
+           and --with-decode on the CPU for --platforms cpu,cuda), each
+           served by cli.detect.main --from-export: the model run's lines
+           within PARITY_GATE, 2 LM launches per batch, export seconds and
+           artifact MB; export_calls, the forward artifact's logits within
+           1e-4 of the largest of the eager model's, and the first and
+           steady detect call from each artifact beside the eager step's;
+           stats, cli.stats.main --vis-targets over the train split: the
+           JSON keys, 4 overlays, one splat launch each. torch.profiler
+           over two train steps and two eager detect calls
+           (resnet18_train_profile, resnet18_detect_profile; the tables to
+           chip_smoke_out/).
 Then the seconds of each phase, the kernels line, the nvidia-smi line and,
 last, {"ok": true, ...}. Needs one CUDA device; without one it exits
 non-zero and prints no result.
@@ -117,7 +145,9 @@ version once, untimed. A line per record; all of them go to FILE
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import io
 import itertools
 import json
 import os
@@ -146,6 +176,17 @@ KITTI_RECT = [1280, 416]  # IS_RECT's input on KITTI-sized frames
 TRAIN_WARMUP, TRAIN_TIMED, LOSS_FALL_STEPS = 3, 10, 20
 AB_LM_REPS, AB_SPLAT_REPS = 20, 100
 DETECT_BATCH = 32  # detect_cli_device: the train split's 128 frames in 4 batches
+# detect_cli_device's vertex head: a car this far ahead (utils/measure.py::
+# cuboid_vertex_bias), centred on the row where the network's peaks fall.
+# The LM accepts a constant pattern only near the row it was drawn for,
+# and the 2-epoch network peaks on the frame's top edge, 42 feature rows
+# above the principal point: there a car on the optical axis accepts no
+# lane at 25 m and 0-3 a launch at 100 m on an H100 (PERF.md)
+DEVICE_CAR_DEPTH = 100.0
+# the resnet18 phase: configs/rtm3d_resnet18_kitti.yaml as shipped (b16),
+# the data phase's tree, 1 epoch; detect and export at b16
+RESNET_CONFIG = "rtm3d_resnet18_kitti.yaml"
+RESNET_TRAIN_BATCH = RESNET_DETECT_BATCH = 16
 PARITY_FRAMES, PARITY_BATCH = 4, 3  # detect_cli_parity: 2 batches, the second padded
 # detect_cli_parity: GPU against CPU, on converged boxes 20-28 m deep: class
 # and box to the format's last digit on >= 99% of lines, the score (4
@@ -229,6 +270,7 @@ def lm_held(lm, calls, n_det: int) -> list:
         out.append({"M": uv.shape[1], "prior_weight": pw, "finite": bool(np.isfinite(ck).all()),
                     "accept_agreement": a[0], "cost_within_1e-3": a[1], "max_abs_cost_diff_accepted": a[2],
                     "accepted_frac": float((cr < 0.1).mean()),
+                    "accepted_lanes": int((ck < 0.1).sum()), "accepted_lanes_plain": int((cr < 0.1).sum()),
                     # reported, not gated: every lane, accepted or not
                     "all_lanes_cost_within_1e-3_rel": float(
                         (np.abs(ck - cr) <= 1e-3 * np.maximum(np.abs(cr), 1.0)).mean())})
@@ -678,6 +720,78 @@ def data_phase(splat, load_config, generate_kitti, cli_train) -> tuple:
     return recs, splats, tree, os.path.join(save_dir, pointer)
 
 
+class _Tee(io.TextIOBase):
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def echoed(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` and what it printed, which still goes to
+    stdout."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue()
+
+
+def detect_run(lm, cli_detect, argv, route=None):
+    """cli.detect.main(argv), the LM launches it made and what it printed;
+    with ``route``, every LM call of the run goes through ``route(lm_solve,
+    uv, x0, kp, iters, lam0, prior_weight)`` (solve3d.py looks lm_solve up
+    at each call)."""
+    solve = lm.lm_solve
+    if route is not None:
+        # the kernel's wrapper counts on whatever lm_solve names when it
+        # launches: during the run, the stand-in
+        lm.lm_solve = functools.partial(route, solve)
+    lm.lm_solve.launches = 0
+    try:
+        out, printed = echoed(cli_detect.main, argv)
+        torch.cuda.synchronize()
+        launches = lm.lm_solve.launches
+    finally:
+        lm.lm_solve = solve
+    return out, launches, printed
+
+
+def keeper(calls: list):
+    """A ``detect_run`` route that keeps each LM call's lanes and costs in
+    ``calls``, to hold the kernel against its plain version afterwards."""
+    def keep(solve, uv, x0, kp, iters=ITERS, lam0=1e-3, prior_weight=0.0):
+        x, cost = solve(uv, x0, kp, iters, lam0, prior_weight)
+        calls.append((uv, x0, kp, iters, lam0, prior_weight, cost))
+        return x, cost
+
+    return keep
+
+
+def car_head(sd: dict, K, depth: float = 25.0, row: float | None = None) -> dict:
+    """``sd`` with its vertex head drawing a car (zero weights, the bias of
+    ``cuboid_vertex_bias``): every peak regresses a near-cuboid, on which
+    the LM converges."""
+    sd["detect_header.offset_fr_main_header.offset_fr_main_head.weight"].zero_()
+    sd["detect_header.offset_fr_main_header.offset_fr_main_head.bias"].copy_(
+        torch.from_numpy(cuboid_vertex_bias(K, depth=depth, row=row)))
+    return sd
+
+
+def peak_row(calls, bias, n_det: int) -> float:
+    """The median feature row of the peaks of a detect run whose vertex
+    head drew the constant ``bias`` (16,): each detection's regressed
+    vertices are its peak (sub-pixel centre) plus the bias, times 4."""
+    rows = [c[0][8:16, :n_det].mean(0).cpu().numpy() / 4.0 - bias[1::2].mean() for c in calls]
+    return float(np.median(np.concatenate(rows)))
+
+
 def detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree: str, checkpoint: str) -> dict:
     """Detect and evaluate from files through the port's CLIs, in this
     process, on the data phase's tree and the device-mode run's checkpoint:
@@ -691,44 +805,32 @@ def detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree: str, check
     root = os.path.dirname(tree)
     configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
     recs = {}
-
-    def detect(argv, route=None):
-        """cli.detect.main(argv) and the LM launches it made; with ``route``,
-        every LM call of the run goes through ``route(lm_solve, uv, x0, kp,
-        iters, lam0, prior_weight)`` (solve3d.py looks lm_solve up at each
-        call)."""
-        solve = lm.lm_solve
-        if route is not None:
-            # the kernel's wrapper counts on whatever lm_solve names when it
-            # launches: during the run, the stand-in
-            lm.lm_solve = functools.partial(route, solve)
-        lm.lm_solve.launches = 0
-        try:
-            out = cli_detect.main(argv)
-            torch.cuda.synchronize()
-            launches = lm.lm_solve.launches
-        finally:
-            lm.lm_solve = solve
-        return out, launches
+    detect = functools.partial(detect_run, lm, cli_detect)
 
     # detect_cli_device: the TPU config as it stands (bf16, device warp, 4
-    # workers); each LM call's lanes and costs are kept, to hold the kernel
-    # against its plain version at this path's shapes after the run
-    calls = []
-
-    def keep(solve, uv, x0, kp, iters=ITERS, lam0=1e-3, prior_weight=0.0):
-        x, cost = solve(uv, x0, kp, iters, lam0, prior_weight)
-        calls.append((uv, x0, kp, iters, lam0, prior_weight, cost))
-        return x, cost
-
+    # workers), the checkpoint's vertex head set to draw a car so that the
+    # LM converges and accepts lanes; each LM call's lanes and costs are
+    # kept, to hold the kernel against its plain version at this path's
+    # shapes after the run. A pilot run with the car on the optical axis
+    # (25 m, as detect_cli_parity draws it) finds the row where the
+    # network's peaks fall (the vertex head does not move them); the
+    # gated run draws the car DEVICE_CAR_DEPTH m ahead on that row.
     device_cfg = os.path.join(configs, "rtm3d_dla34_kitti_tpu.yaml")
-    out_dir = os.path.join(root, "results_device")
-    summary, launches = detect([
-        "--model-config", device_cfg, "--data-path", tree,
-        "--split", "train", "--batch-size", str(DETECT_BATCH), "--checkpoint", checkpoint, "--out-dir", out_dir],
-        keep)
     dcfg = load_config(device_cfg)
     n_det = DETECT_BATCH * int(dcfg.DETECTOR.TOPK_CANDIDATES)
+    K_dev = create_dataset(tree, dcfg, is_training=False, split="train")[0]["calib"].reshape(3, 3)
+    device_weights = os.path.join(root, "device_weights.pt")
+    device_argv = ["--model-config", device_cfg, "--data-path", tree, "--split", "train", "--batch-size",
+                   str(DETECT_BATCH), "--checkpoint", device_weights]
+    pilot = []
+    torch.save(car_head(load_torch_weights(checkpoint)[0], K_dev), device_weights)
+    detect(device_argv + ["--out-dir", os.path.join(root, "results_pilot")], keeper(pilot))
+    row = peak_row([c for c in pilot if c[5] > 0], cuboid_vertex_bias(K_dev), n_det)
+    pilot_accepted = [int((c[6] < 0.1).sum()) for c in pilot]
+    calls = []
+    torch.save(car_head(load_torch_weights(checkpoint)[0], K_dev, DEVICE_CAR_DEPTH, row), device_weights)
+    out_dir = os.path.join(root, "results_device")
+    summary, launches, _ = detect(device_argv + ["--out-dir", out_dir], keeper(calls))
     held = lm_held(lm, calls, n_det)
     batches = len(summary["batch_s"])
     steady = summary["batch_s"][1:]
@@ -739,17 +841,24 @@ def detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree: str, check
            "device_s": summary["device_s"], "wall_s": summary["wall_s"],
            "outside_detect_share": 1.0 - summary["device_s"] / summary["wall_s"],
            "batch_ms": [1e3 * t for t in summary["batch_s"]], "wait_ms": [1e3 * t for t in summary["wait_s"]],
-           "first_wait_ms": 1e3 * summary["wait_s"][0], "lm_launches": launches, "lm_held": held}
+           "first_wait_ms": 1e3 * summary["wait_s"][0], "lm_launches": launches,
+           "vertex_head": f"car {DEVICE_CAR_DEPTH:g} m ahead on feature row {row:.2f}",
+           "pilot_accepted_lanes_car_on_axis_25m": pilot_accepted, "accepted_lanes": [h["accepted_lanes"] for h in held],
+           "lm_held": held}
     recs["detect_cli_device"] = rec
     emit("detect_cli_device", **rec)
     if (summary["images"] != DATA_TRAIN or rec["result_files"] != DATA_TRAIN or summary["img_size"] != KITTI_RECT
             or launches != 2 * batches or len(held) != launches):
         raise AssertionError(f"detect_cli_device: expected a result file for each of {DATA_TRAIN} frames, "
                              f"img_size {KITTI_RECT} and 2 LM launches per batch: {rec}")
-    if not all(h["finite"] and h["accept_agreement"] >= 0.999 and h["cost_within_1e-3"] >= 0.999 for h in held):
-        raise AssertionError(f"detect_cli_device: the LM kernel disagrees with its plain version: {held}")
-    # a barely trained network's lanes are accepted nowhere, so the same
-    # shapes again on synthetic lanes that straddle the accept threshold
+    # every launch on the lanes the CLI made: lanes accepted, the accept
+    # decisions and the accepted costs as the lm phases hold them
+    if not all(h["finite"] and h["accepted_lanes"] >= 1 and h["accepted_lanes_plain"] >= 1
+               and h["accept_agreement"] >= 0.999 and h["cost_within_1e-3"] >= 0.999 for h in held):
+        raise AssertionError(f"detect_cli_device: a launch accepts no lane, or the LM kernel disagrees with its "
+                             f"plain version on the CLI's lanes: {held}")
+    os.remove(device_weights)
+    # the same shapes on synthetic lanes that straddle the accept threshold
     lm_detect_pair(lm, n_det, np.asarray(dcfg.DETECTOR.dim_ref, np.float32), float(dcfg.DETECTOR.DIM_PRIOR_WEIGHT), 1)
 
     # detect_cli_parity: the host config (fp32, TF32 off), 4 test frames at
@@ -763,15 +872,12 @@ def detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree: str, check
     lifted = ["DETECTOR.SCORE_THRESH", "0.0", "DETECTOR.RESIDUAL_THRESH", "1e9"]
     cfg = load_config(host_cfg, lifted)
     K = create_dataset(tree, cfg, is_training=False, split="parity")[0]["calib"].reshape(3, 3)
-    sd = load_torch_weights(checkpoint)[0]
-    sd["detect_header.offset_fr_main_header.offset_fr_main_head.weight"].zero_()
-    sd["detect_header.offset_fr_main_header.offset_fr_main_head.bias"].copy_(torch.from_numpy(cuboid_vertex_bias(K)))
     weights = os.path.join(root, "parity_weights.pt")
-    torch.save(sd, weights)
+    torch.save(car_head(load_torch_weights(checkpoint)[0], K), weights)
     argv = ["--model-config", host_cfg, "--data-path", tree, "--split", "parity", "--batch-size",
             str(PARITY_BATCH), "--checkpoint", weights]
     gpu_dir, cpu_dir = os.path.join(root, "results_parity_gpu"), os.path.join(root, "results_parity_cpu")
-    gpu, parity_launches = detect(argv + ["--out-dir", gpu_dir, "--set", *lifted])
+    gpu, parity_launches, _ = detect(argv + ["--out-dir", gpu_dir, "--set", *lifted])
     t0 = time.perf_counter()
     cli_detect.main(argv + ["--out-dir", cpu_dir, "--device", "cpu", "--set", *lifted])
     cpu_s = time.perf_counter() - t0
@@ -861,6 +967,209 @@ def detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree: str, check
     os.remove(weights)
     return {"launches": recs["detect_cli_device"]["lm_launches"] + parity_launches, "records": recs,
             "max_abs_err": max(h["max_abs_cost_diff_accepted"] for h in held)}
+
+
+def resnet18_phase(lm, splat, load_config, cli_train, cli_detect, cli_export, cli_stats, tree: str, smi: str) -> dict:
+    """configs/rtm3d_resnet18_kitti.yaml as shipped (fp32, IS_RECT,
+    ``pretrained`` with no file) on the data phase's tree: train, detect
+    from the trained file through the config's own checkpoint path, export
+    and serve from the artifacts, dataset statistics. See the module's
+    docstring. Returns the kernels' launches by path and the records."""
+    from rtm3d_tpu_torch.data.kitti import create_dataset
+    from rtm3d_tpu_torch.data.loader import DataLoader
+    from rtm3d_tpu_torch.data.targets import heatmap_inputs
+    from rtm3d_tpu_torch.nn.model import create_model
+    from rtm3d_tpu_torch.train.checkpoint import load_detect_weights
+    from rtm3d_tpu_torch.train.step import make_detect_step, make_detect_step_from_export, make_train_step
+
+    root = os.path.join(os.path.dirname(tree), "resnet18")
+    shutil.rmtree(root, ignore_errors=True)
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", RESNET_CONFIG)
+    cfg = load_config(config)
+    recs, launches = {}, {}
+
+    # train: 1 epoch as shipped, the batch as RESNET_TRAIN_BATCH says
+    weights = os.path.join(root, "weights")
+    argv = ["--model-config", config, "--data-path", tree, "--set", "TRAINING.WEIGHTS", weights,
+            "SOLVER.MAX_EPOCH", "1", "BATCH_SIZE", str(RESNET_TRAIN_BATCH)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    splat.splat_heatmap.launches = 0
+    out, printed = echoed(cli_train.main, argv)
+    torch.cuda.synchronize()
+    launches["resnet18_train"] = splat.splat_heatmap.launches
+    rec = cli_record(out, RESNET_TRAIN_BATCH, int(cfg.get("num_workers", 0)), launches["resnet18_train"])
+    spans = out["history"][-1]["step_span_ms"]
+    rec.update(card=smi, config=RESNET_CONFIG, dtype=str(cfg.TPU.COMPUTE_DTYPE), config_batch=int(cfg.BATCH_SIZE),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, step_ms_first=spans[0],
+               step_ms_steady=float(np.mean(spans[1:])) if len(spans) > 1 else None,
+               trained_from_init="training from init" in printed)
+    recs["resnet18_train"] = rec
+    emit("resnet18_train", **rec)
+    check_cli_run("resnet18_train", rec, launches["resnet18_train"], out)
+    if not rec["trained_from_init"]:
+        raise AssertionError("resnet18_train: pretrained with an empty CHECKPOINT_FILE did not train from init")
+    # the splat against its plain version on the first train batch's labels
+    tcfg = load_config(config)
+    tcfg.INPUT_SIZE = tuple(out["img_size"])
+    batch = next(iter(DataLoader(create_dataset(tree, tcfg, is_training=True, split="train"), RESNET_TRAIN_BATCH,
+                                 seed=20)))
+    labels = {k: torch.from_numpy(np.asarray(v)).cuda() for k, v in batch["labels"].items()}
+    down = int(cfg.MODEL.DOWN_SAMPLE)
+    feat_hw = (tcfg.INPUT_SIZE[1] // down, tcfg.INPUT_SIZE[0] // down)
+    inputs = heatmap_inputs(labels, float(down), cfg.DATASET.GAUSSIAN_GEN_TYPE, cfg.DATASET.BBOX_AREA_MAX,
+                            cfg.DATASET.BBOX_AREA_MIN)
+    splat_check = splat_phase(splat, inputs, feat_hw, len(cfg.DATASET.OBJs), "data_shape_resnet18")
+    # where a step's time goes: two steps of the trained state on that batch
+    step = make_train_step(tcfg, device="cuda")
+    profile_calls("resnet18_train_profile", lambda: step(out["state"], batch), 2,
+                  "chip_smoke_out/resnet18_train_profile.json")
+    del out, batch, step
+    torch.cuda.empty_cache()
+
+    # detect from the trained file through the config's own path (a
+    # .msgpack that does not exist, the port's .pt beside it), the vertex
+    # head set to draw a car as in detect_cli_device
+    pt = os.path.join(weights, cfg.MODEL.BACKBONE, "model_best.pt")
+    K = create_dataset(tree, tcfg, is_training=False, split="train")[0]["calib"].reshape(3, 3)
+    payload = torch.load(pt, map_location="cpu", weights_only=True)
+    car_head(payload["model"], K, DEVICE_CAR_DEPTH)
+    if payload["ema"] is not None:
+        car_head(payload["ema"], K, DEVICE_CAR_DEPTH)
+    torch.save(payload, pt)
+    names = sorted(open(os.path.join(tree, "ImageSets", "train.txt")).read().split())
+    n_det = RESNET_DETECT_BATCH * int(cfg.DETECTOR.TOPK_CANDIDATES)
+    common = ["--model-config", config, "--data-path", tree, "--split", "train", "--batch-size",
+              str(RESNET_DETECT_BATCH)]
+
+    def served(name, extra):
+        calls = []
+        out_dir = os.path.join(root, f"results_{name}")
+        summary, n, printed = detect_run(lm, cli_detect, common + ["--out-dir", out_dir] + extra, keeper(calls))
+        held = lm_held(lm, calls, n_det)
+        batches = len(summary["batch_s"])
+        rec = {"card": smi, "img_size": summary["img_size"], "batch": RESNET_DETECT_BATCH, "images": summary["images"],
+               "batches": batches, "result_files": len(os.listdir(out_dir)),
+               "device_images_per_s": summary["device_images_per_s"],
+               "wall_images_per_s": summary["wall_images_per_s"], "call_ms": [1e3 * t for t in summary["batch_s"]],
+               "steady_call_ms": 1e3 * float(np.mean(summary["batch_s"][1:])), "lm_launches": n,
+               "accepted_lanes": [h["accepted_lanes"] for h in held], "lm_held": held}
+        if (summary["images"] != DATA_TRAIN or rec["result_files"] != DATA_TRAIN
+                or summary["img_size"] != KITTI_RECT or n != 2 * batches or len(held) != n):
+            emit(name, **rec)
+            raise AssertionError(f"{name}: expected a result file for each of {DATA_TRAIN} frames, img_size "
+                                 f"{KITTI_RECT} and 2 LM launches per batch: {rec}")
+        if not all(h["finite"] and h["accept_agreement"] >= 0.999 and h["cost_within_1e-3"] >= 0.999 for h in held):
+            emit(name, **rec)
+            raise AssertionError(f"{name}: the LM kernel disagrees with its plain version: {held}")
+        return rec, out_dir, printed
+
+    missing = os.path.join(weights, cfg.MODEL.BACKBONE, "model_best.msgpack")
+    rec, model_dir, printed = served("resnet18_detect", ["--set", "DETECTOR.CHECKPOINT", missing])
+    rec["found_pt_beside_msgpack"] = "serving the port's checkpoint" in printed
+    launches["resnet18_detect"] = rec["lm_launches"]
+    recs["resnet18_detect"] = rec
+    emit("resnet18_detect", **rec)
+    if not rec["found_pt_beside_msgpack"]:
+        raise AssertionError("resnet18_detect: the config's checkpoint path did not serve the trained .pt")
+
+    # export (with and without decode, on the card; with decode on the CPU
+    # for cpu,cuda), then serve each through cli.detect --from-export
+    w, h = rec["img_size"]
+    size = ["--set", "INPUT_SIZE", f"({w}, {h})"]
+    exports, export_launches = {}, 0
+    for name, extra in (("decode", ["--with-decode"]), ("forward", []),
+                        ("decode_cpu_made", ["--with-decode", "--device", "cpu", "--platforms", "cpu,cuda"])):
+        art = os.path.join(root, f"{name}.pt2")
+        made = cli_export.main(["--model-config", config, "--output", art, "--checkpoint", pt, "--batch-size",
+                                str(RESNET_DETECT_BATCH), *extra, *size])
+        srec, out_dir, _ = served(f"export_detect_{name}", ["--from-export", art])
+        export_launches += srec["lm_launches"]
+        cmp = compare_result_dirs(model_dir, out_dir, names)
+        srec.update(export_s=made["seconds"], artifact_mb=made["bytes"] / 1e6, platforms=made["platforms"],
+                    vs_model={k: cmp[k] for k in ("lines", "lines_got", "box_agree_share", "max_abs")})
+        exports[name] = srec
+        emit(f"export_detect_{name}", **srec)
+        worst = cmp["max_abs"]
+        if (cmp["lines"] != cmp["lines_got"] or cmp["box_agree_share"] < PARITY_GATE["box_agree_share"]
+                or any(worst[k] > PARITY_GATE[k] for k in ("score", "angle", "dim", "loc"))):
+            raise AssertionError(f"export_detect_{name}: the artifact's result lines disagree with the model's: "
+                                 f"{srec}")
+    launches["export_detect"] = export_launches
+    recs["export_detect"] = exports
+
+    # the forward artifact's logits against the eager model's, and detect
+    # calls from the artifact beside the eager step's: the first after the
+    # load, then steady
+    from rtm3d_tpu_torch.cli.export import load_exported
+
+    ecfg = load_config(config)
+    ecfg.INPUT_SIZE = (w, h)
+    model = create_model(ecfg)
+    load_detect_weights(pt, model)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    frames = torch.randint(0, 256, (RESNET_DETECT_BATCH, h, w, 3), dtype=torch.uint8, device="cuda", generator=gen)
+    Kb = torch.from_numpy(np.tile(np.asarray(K, np.float32), (RESNET_DETECT_BATCH, 1, 1))).cuda()
+    art = load_exported(os.path.join(root, "forward.pt2"), "cuda")
+    eager = make_detect_step(model, ecfg, device="cuda")
+    with torch.inference_mode():
+        x = ((frames.float() / 255.0 - torch.tensor(ecfg.DATASET.MEAN, device="cuda"))
+             / torch.tensor(ecfg.DATASET.STD, device="cuda"))
+        got = art(x)
+        net = model.cuda().to(memory_format=torch.channels_last).eval()
+        ref = net(x.permute(0, 3, 1, 2))
+    rel = [((g.float() - r.float()).abs().max() / r.float().abs().max()).item() for g, r in zip(got, ref)]
+    del net, x, got, ref
+
+    def timed(step):
+        out = []
+        for _ in range(4):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            _ = {k: v.cpu() for k, v in step(frames, Kb).items()}  # ends in host memory, as a caller's
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return {"first_call_ms": out[0], "steady_call_ms": float(np.mean(out[1:]))}
+
+    lm.lm_solve.launches = 0
+    calls_ms = {"artifact_forward": timed(make_detect_step_from_export(art, ecfg, device="cuda")),
+                "artifact_decode": timed(make_detect_step_from_export(
+                    load_exported(os.path.join(root, "decode.pt2"), "cuda"), ecfg, device="cuda")),
+                "eager": timed(eager)}
+    torch.cuda.synchronize()
+    timed_launches = lm.lm_solve.launches
+    rec = {"card": smi, "batch": RESNET_DETECT_BATCH, "input": f"{w}x{h}", "logits_rel_err": rel,
+           "calls": calls_ms, "lm_launches_per_call": timed_launches / 12}
+    recs["export_calls"] = rec
+    emit("export_calls", **rec)
+    if max(rel) > 1e-4 or timed_launches != 2 * 12:
+        raise AssertionError(f"export_calls: the artifact's logits leave the fp32 gate (1e-4 of the largest), or a "
+                             f"call made other than 2 LM launches: {rec}")
+    profile_calls("resnet18_detect_profile", lambda: eager(frames, Kb), 2, "chip_smoke_out/resnet18_detect_profile.json")
+    del art, eager, model, frames
+    for name in exports:
+        os.remove(os.path.join(root, f"{name}.pt2"))
+    torch.cuda.empty_cache()
+
+    # dataset statistics, with the target overlays drawn by the splat kernel
+    vis = os.path.join(root, "vis_targets")
+    splat.splat_heatmap.launches = 0
+    st = cli_stats.main(["--model-config", config, "--data-path", tree, "--vis-targets", vis])
+    torch.cuda.synchronize()
+    launches["stats"] = splat.splat_heatmap.launches
+    keys = {"BBOX_AREA_MAX", "BBOX_AREA_MIN", "VERTEX_OFFSET_INFER", "num_images", "num_objects"}
+    rec = {"card": smi, **{k: st[k] for k in sorted(keys)}, "overlays": len(st.get("overlays", [])),
+           "splat_launches": launches["stats"]}
+    recs["stats"] = rec
+    emit("stats", **rec)
+    if (not keys <= set(st) or st["num_images"] != DATA_TRAIN or rec["overlays"] != 4
+            or launches["stats"] != rec["overlays"] or not all(os.path.exists(p) for p in st["overlays"])):
+        raise AssertionError(f"stats: missing keys or overlays, or other than one splat launch per overlay: {rec}")
+    shutil.rmtree(weights, ignore_errors=True)
+    held = [hh for r in [recs["resnet18_detect"], *exports.values()] for hh in r["lm_held"]]
+    return {"launches": launches, "records": recs, "splat_max_abs_err": splat_check["max_abs_err"],
+            "lm_max_abs_err": max(hh["max_abs_cost_diff_accepted"] for hh in held)}
 
 
 def ptxas_lines(log: str) -> list:
@@ -1039,6 +1348,8 @@ def main() -> int:
     from rtm3d_tpu_torch.api import Detector
     from rtm3d_tpu_torch.cli import detect as cli_detect
     from rtm3d_tpu_torch.cli import evaluate as cli_evaluate
+    from rtm3d_tpu_torch.cli import export as cli_export
+    from rtm3d_tpu_torch.cli import stats as cli_stats
     from rtm3d_tpu_torch.cli import train as cli_train
     from rtm3d_tpu_torch.data.synthetic import generate_kitti
     from rtm3d_tpu_torch.data.targets import heatmap_inputs
@@ -1114,6 +1425,8 @@ def main() -> int:
     phase_done("data")
     from_files_detect = detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree, checkpoint)
     phase_done("detect_cli")
+    resnet = resnet18_phase(lm, splat, load_config, cli_train, cli_detect, cli_export, cli_stats, tree, smi)
+    phase_done("resnet18")
     emit("seconds", **seconds, total=round(sum(seconds.values()), 2))
 
     pair = (first, second)
@@ -1122,13 +1435,19 @@ def main() -> int:
         "route": "cuda",
         "source": "rtm3d_tpu_torch/csrc/lm_solver.cu",
         "replaces": LM_REPLACES,
-        # 2 per detect call: the serve phase's calls and the detect CLI's batches
-        "launches": served["lm_launches"] + from_files_detect["launches"],
-        "launches_by_path": {"serve": served["lm_launches"], "detect_cli": from_files_detect["launches"]},
+        # 2 per detect call: the serve phase's calls, the detect CLI's
+        # batches, the ResNet-18 detect run's and the runs from its artifacts
+        "launches": (served["lm_launches"] + from_files_detect["launches"]
+                     + resnet["launches"]["resnet18_detect"] + resnet["launches"]["export_detect"]),
+        "launches_by_path": {"serve": served["lm_launches"], "detect_cli": from_files_detect["launches"],
+                             "resnet18_detect": resnet["launches"]["resnet18_detect"],
+                             "export_detect": resnet["launches"]["export_detect"]},
         # the largest cost gap where both accept: the lm phases' lanes and
-        # every launch of detect_cli_device; the times are those of the
-        # pair of launches at M=25,600 (prior 20) and M=38,400 (prior 0)
-        "max_abs_err": max([r["detection_max_abs_cost_diff_accepted"] for r in pair] + [from_files_detect["max_abs_err"]]),
+        # every launch of detect_cli_device and of the resnet18 phase's
+        # detect runs; the times are those of the pair of launches at
+        # M=25,600 (prior 20) and M=38,400 (prior 0)
+        "max_abs_err": max([r["detection_max_abs_cost_diff_accepted"] for r in pair]
+                           + [from_files_detect["max_abs_err"], resnet["lm_max_abs_err"]]),
         "ms": sum(r["kernel_ms"] for r in pair),
         "plain_ms": sum(r["plain_ms"] for r in pair),
         "bound_ms": sum(r["bound_ms"] for r in pair),
@@ -1140,13 +1459,18 @@ def main() -> int:
         "source": "rtm3d_tpu_torch/csrc/splat.cu",
         "replaces": SPLAT_REPLACES,
         # one launch per train step and eval batch: the timed steps of the
-        # train phase and the data phase's three runs of the CLI
-        "launches": trained["splat_launches"] + sum(r["splat_launches"] for r in from_files.values()),
+        # train phase, the data phase's three runs of the CLI and the
+        # ResNet-18 run; one per overlay of cli.stats --vis-targets
+        "launches": (trained["splat_launches"] + sum(r["splat_launches"] for r in from_files.values())
+                     + resnet["launches"]["resnet18_train"] + resnet["launches"]["stats"]),
         "launches_by_path": {"train": trained["splat_launches"],
-                             **{k: r["splat_launches"] for k, r in from_files.items()}},
+                             **{k: r["splat_launches"] for k, r in from_files.items()},
+                             "resnet18_train": resnet["launches"]["resnet18_train"],
+                             "stats": resnet["launches"]["stats"]},
         # at the train phase's shape, on the edge batch and at both data
-        # modes' shapes and labels
-        "max_abs_err": max(r["max_abs_err"] for r in (splat_main, splat_edge, *data_splats.values())),
+        # modes' and the ResNet-18 run's shapes and labels
+        "max_abs_err": max([r["max_abs_err"] for r in (splat_main, splat_edge, *data_splats.values())]
+                           + [resnet["splat_max_abs_err"]]),
         "ms": splat_main["kernel_ms"],
         "plain_ms": splat_main["plain_ms"],
         "bound_ms": splat_main["bound_ms"],

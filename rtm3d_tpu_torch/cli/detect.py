@@ -11,17 +11,21 @@ to each original frame -> one KITTI result file per image
 
     python -m rtm3d_tpu_torch.cli.detect --model-config configs/rtm3d_dla34_kitti.yaml \\
         [--data-path P] [--split test] [--out-dir results] [--save-vis DIR] \\
-        [--checkpoint CKPT] [--batch-size N] [--set KEY VALUE ...] [--device cpu]
+        [--checkpoint CKPT | --from-export ART] [--batch-size N] [--set KEY VALUE ...] [--device cpu]
 
 ``--checkpoint`` (else ``DETECTOR.CHECKPOINT``): a flax msgpack file of the
 JAX package, a ``CheckPointer`` file of the port or a reference ``.pt``
-(``train.checkpoint.load_detect_weights``). Under ``TPU.DEVICE_WARP`` the
+(``train.checkpoint.load_detect_weights``). ``--from-export ART`` serves an
+artifact of ``cli/export.py`` instead: no model is built and no weights are
+loaded, the artifact's batch overrides ``--batch-size`` (the loader pads
+the last batch, and a split shorter than it, to that batch) and its input
+size must be the split's. Under ``TPU.DEVICE_WARP`` the
 loader ships raw canvases and the step resamples them on the device. The
 port serves on one device; ``--device`` is ``cuda`` by default, and without
 a GPU the run raises unless it is given ``--device cpu``.
 
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md, queue A):
-``--int8`` and its options (int8 PTQ), ``--from-export`` (Export).
+``--int8`` and its options (int8 PTQ).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from rtm3d_tpu_torch.data.loader import DataLoader, prefetch_to_device
 from rtm3d_tpu_torch.eval.kitti_writer import detections_to_lines, write_results
 from rtm3d_tpu_torch.nn.model import create_model
 from rtm3d_tpu_torch.train.checkpoint import load_detect_weights
-from rtm3d_tpu_torch.train.step import make_detect_step, resolve_device
+from rtm3d_tpu_torch.train.step import make_detect_step, make_detect_step_from_export, resolve_device
 
 
 def parse_args(argv=None):
@@ -52,14 +56,14 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", type=str, default=None)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    # the JAX CLI's int8 and export options: not ported yet, they raise
+    # the JAX CLI's int8 options: not ported yet, they raise
     p.add_argument("--int8", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--int8-3d-anyway", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--int8-no-gate", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--calib-batches", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--calib-method", type=str, default=None, help=argparse.SUPPRESS)
     p.add_argument("--calib-scales", type=str, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--from-export", type=str, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--from-export", type=str, default=None, help="serve this cli.export artifact")
     p.add_argument("--set", nargs="*", default=[])
     return p.parse_args(argv)
 
@@ -70,9 +74,6 @@ def refuse_unported(args) -> None:
                             ("--calib-method", args.calib_method), ("--calib-scales", args.calib_scales)) if on]
     if int8:
         raise NotImplementedError(f"{', '.join(int8)}: int8 serving is not ported yet (ROADMAP.md, queue A: int8 PTQ)")
-    if args.from_export:
-        raise NotImplementedError("--from-export: serving from an export is not ported yet "
-                                  "(ROADMAP.md, queue A: Export)")
 
 
 def original_frame_boxes(bbox2d: np.ndarray, shape, resize_max_side: int, img_size) -> np.ndarray:
@@ -111,11 +112,25 @@ def main(argv=None) -> dict:
 
     ds = create_dataset(cfg.DATASET.PATH, cfg, is_training=False, split=args.split)
     cfg.INPUT_SIZE = tuple(ds.img_size)
-    model = create_model(cfg)
-    load_detect_weights(args.checkpoint or cfg.DETECTOR.CHECKPOINT, model)
-    detect = make_detect_step(model, cfg, with_3d=True, device=device)
+    batch_size = min(args.batch_size, len(ds))
+    if args.from_export:
+        # the checkpoint's weights are baked into the artifact
+        from rtm3d_tpu_torch.cli.export import load_exported
+
+        exported = load_exported(args.from_export, device)
+        if exported.input_hw != (ds.img_size[1], ds.img_size[0]):
+            raise ValueError(f"{args.from_export} takes {exported.input_hw[1]}x{exported.input_hw[0]} frames, "
+                             f"the split gives {ds.img_size[0]}x{ds.img_size[1]}")
+        if exported.batch != args.batch_size:
+            print(f"from-export: artifact batch is {exported.batch}, overriding --batch-size")
+        batch_size = exported.batch  # its one shape: pad_final fills every batch to it
+        detect = make_detect_step_from_export(exported, cfg, device=device)
+    else:
+        model = create_model(cfg)
+        load_detect_weights(args.checkpoint or cfg.DETECTOR.CHECKPOINT, model)
+        detect = make_detect_step(model, cfg, with_3d=True, device=device)
     loader = DataLoader(
-        ds, min(args.batch_size, len(ds)), shuffle=False, drop_last=False, num_shards=1, shard_index=0,
+        ds, batch_size, shuffle=False, drop_last=False, num_shards=1, shard_index=0,
         pad_final=True,  # one batch shape; the padded tail is skipped below
         num_workers=int(cfg.get("num_workers", 0)),
     )

@@ -17,7 +17,10 @@ the run raises unless it is given ``--device cpu``.
 there is one) or ``pretrained`` (a ``.pt``/``.pth``/``.pkl`` file in
 ``TRAINING.CHECKPOINT_FILE``, a whole model or a part of one such as an
 ImageNet backbone, imported by longest-suffix name matching as the JAX CLI
-does, :162-171; any other suffix raises).
+does, :162-171). Under ``pretrained`` an empty ``CHECKPOINT_FILE`` trains
+from init, and a named file that does not exist warns and trains from
+init, as the JAX CLI does; a named file of any other suffix raises, where
+the JAX CLI skips it without a word.
 
 Resume is exact: the model's parameters and BN buffers, the optimizer
 state, the EMA shadow, ``step`` and ``updates`` come back bit for bit, and
@@ -106,11 +109,16 @@ def _model_state(cfg, seed: int, device, max_iters: int):
     if mode not in MODES:
         raise ValueError(f"TRAINING.CHECKPOINT_MODE {cfg.TRAINING.CHECKPOINT_MODE!r} is not one of {MODES}")
     if mode == "pretrained":
-        path = str(cfg.TRAINING.CHECKPOINT_FILE)
-        if not path.endswith((".pt", ".pth", ".pkl")):
+        path = str(cfg.TRAINING.CHECKPOINT_FILE or "")
+        if path and not path.endswith((".pt", ".pth", ".pkl")):
             raise ValueError(f"pretrained weights must be a .pt, .pth or .pkl file, got {path!r}")
-        report = import_reference_weights(model, load_torch_weights(path)[0])
-        print(f"imported {len(report['loaded'])} tensors from {path}; {len(report['missed'])} missed")
+        if not path:
+            print("pretrained: no TRAINING.CHECKPOINT_FILE; training from init")
+        elif not os.path.exists(path):
+            print(f"WARNING: pretrained weights {path} not found; training from init")
+        else:
+            report = import_reference_weights(model, load_torch_weights(path)[0])
+            print(f"imported {len(report['loaded'])} tensors from {path}; {len(report['missed'])} missed")
     return mode, TrainState.create(model, cfg, device=device, max_iters=max_iters)
 
 

@@ -20,7 +20,10 @@ import torch.nn.functional as F
 def nms_peaks(hm: torch.Tensor, kernel: int = 3) -> torch.Tensor:
     """Keep pixels that equal their 3x3 max (model_utils.py:17-26). NCHW."""
     hmax = F.max_pool2d(hm, kernel, stride=1, padding=(kernel - 1) // 2)
-    return torch.where(hmax == hm, hm, torch.zeros((), dtype=hm.dtype, device=hm.device))
+    # a Python scalar, not a tensor made on hm's device: torch.export would
+    # record that device in the graph (cli/export.py serves one graph on
+    # every platform it lists)
+    return torch.where(hmax == hm, hm, 0.0)
 
 
 def decode_detections(

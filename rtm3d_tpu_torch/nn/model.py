@@ -1,7 +1,9 @@
 """The RTM3D model: backbone + KFPN fusion + header, and the factory.
 
 Port of ``rtm3d_tpu/nn/model.py:26-94``; reference semantics:
-models/model.py:9-27 and models/model_factory.py:23-37. The forward takes
+models/model.py:9-27 and models/model_factory.py:23-37. The backbone is
+DLA-34 (``nn/dla.py``) or a PoseResNet of the depth the name ends in
+(``RESNET-18`` ... ``RESNET-152``, ``nn/resnet.py``). The forward takes
 NCHW (or channels_last) images and returns the 4 logit maps in NCHW:
 (main_kf [B,C,H/4,W/4], offset_fr_main [.,16,.,.], main_offset [.,2,.,.],
 vertex_offset [.,2,.,.]); decode is separate (``decode/peaks.py``).
@@ -19,6 +21,7 @@ from rtm3d_tpu_torch.nn.dla import DLABase
 from rtm3d_tpu_torch.nn.header import RTM3DHeader
 from rtm3d_tpu_torch.nn.kfpn import KeypointFPNFusion
 from rtm3d_tpu_torch.nn.layers import init_weights
+from rtm3d_tpu_torch.nn.resnet import PoseResNet
 
 
 class RTM3D(nn.Module):
@@ -32,14 +35,12 @@ class RTM3D(nn.Module):
     ):
         super().__init__()
         name = backbone_name.upper()
-        if "RESNET" in name:
-            raise NotImplementedError(
-                f"{backbone_name}: the ResNet backbones are not ported yet "
-                "(ROADMAP.md, queue A: ResNet backbones)"
-            )
-        if "DLA-34" not in name:
+        if "DLA-34" in name:
+            self.backbone = DLABase(kfns=tuple(kfns))
+        elif "RESNET" in name:
+            self.backbone = PoseResNet(depth=int(name.split("-")[-1]), kfns=tuple(kfns))
+        else:
             raise ValueError(f"unsupported backbone: {backbone_name}")
-        self.backbone = DLABase(kfns=tuple(kfns))
         self.kfpn_fusion = KeypointFPNFusion(
             tuple(kfns), self.backbone.kfpn_spec, out_channels=out_channels
         )

@@ -429,8 +429,18 @@ def load_detect_weights(path: Optional[str], model: nn.Module) -> str:
       file with its EMA shadow;
     - a directory: an orbax checkpoint, not read yet;
     - any other file: a flax msgpack checkpoint, EMA preferred;
+    - a ``.msgpack`` path that does not exist, with a port ``<stem>.pt``
+      beside it: that file, as above. The configs name
+      ``weights/<BACKBONE>/model_best.msgpack``, the file the JAX trainer
+      writes, and the port's trainer writes ``model_best.pt`` there;
     - a path that does not exist: the model keeps its random weights, with
       a warning, as in the JAX package."""
+    stand_in = ""
+    if path and path.endswith(".msgpack") and not os.path.exists(path):
+        pt = path[: -len(".msgpack")] + ".pt"
+        if os.path.exists(pt):
+            stand_in = f"{path} not found; serving the port's checkpoint {pt} beside it: "
+            path = pt
     if path and os.path.isdir(path):
         raise NotImplementedError(f"{path}: orbax directory checkpoints are not read by the port yet "
                                   "(ROADMAP.md, queue A: Data-parallel)")
@@ -445,5 +455,6 @@ def load_detect_weights(path: Optional[str], model: nn.Module) -> str:
         sd, ema = load_flax_checkpoint(path, model)
         model.load_state_dict(sd, strict=True)
         line = f"loaded checkpoint {path}" + (" (EMA weights)" if ema else "")
+    line = stand_in + line
     print(line)
     return line

@@ -2,8 +2,9 @@
 
 Port of ``rtm3d_tpu/train/step.py``: ``normalize_images`` (:35-44),
 ``_loss_from_batch``, ``make_train_step`` and ``make_eval_loss_step``
-(:95-234), ``attach_3d`` and ``make_detect_step`` (:237-309); reference
-semantics: train.py:61-117 and detect.py:47-88.
+(:95-234), ``attach_3d``, ``make_detect_step`` (:237-309) and
+``make_detect_step_from_export`` (:312-350); reference semantics:
+train.py:61-117 and detect.py:47-88.
 
 Public layouts are the JAX package's: images (B, H, W, 3) uint8 or
 normalised float, a label block of fixed (B, MAX_OBJS, ...) tensors
@@ -284,6 +285,20 @@ def attach_3d(det: Dict[str, torch.Tensor], K: torch.Tensor, cfg: Config) -> Dic
     return det
 
 
+def _detect_inputs(images, K, warp, border, cfg: Config, device: torch.device):
+    """The detect steps' input stage on ``device``: (B, H, W, 3) normalised
+    frames (the device warp's, with ``warp``; uint8 frames normalised,
+    float frames as they are) and float32 K."""
+    images = torch.as_tensor(images).to(device, non_blocking=True)
+    K = torch.as_tensor(K, dtype=torch.float32).to(device, non_blocking=True)
+    if warp is not None:
+        batch = {"image": images, "warp": torch.as_tensor(warp).to(device, non_blocking=True)}
+        if border is not None:
+            batch["border"] = torch.as_tensor(border).to(device, non_blocking=True)
+        images = prepare_images(batch, cfg)
+    return normalize_images(images, cfg), K
+
+
 def make_detect_step(
     model: nn.Module, cfg: Config, with_3d: bool = True, device=None
 ) -> Callable[..., Dict[str, torch.Tensor]]:
@@ -311,20 +326,41 @@ def make_detect_step(
 
     @torch.inference_mode()
     def detect_step(images, K, warp=None, border=None):
-        images = torch.as_tensor(images).to(device, non_blocking=True)
-        K = torch.as_tensor(K, dtype=torch.float32).to(device, non_blocking=True)
-        if warp is not None:
-            batch = {"image": images, "warp": torch.as_tensor(warp).to(device, non_blocking=True)}
-            if border is not None:
-                batch["border"] = torch.as_tensor(border).to(device, non_blocking=True)
-            images = prepare_images(batch, cfg)
+        images, K = _detect_inputs(images, K, warp, border, cfg, device)
         # NHWC -> an NCHW view with channels_last strides: no copy
-        x = normalize_images(images, cfg).permute(0, 3, 1, 2).to(dtype)
-        logits = net(x)
+        logits = net(images.permute(0, 3, 1, 2).to(dtype))
         det = decode_detections(logits, score_thresh=thresh, topk=topk, down_sample=down)
         if with_3d:
             return attach_3d(det, K, cfg)
         det["accepted"] = det["valid"]
         return det
+
+    return detect_step
+
+
+def make_detect_step_from_export(exported, cfg: Config, device=None) -> Callable[..., Dict[str, torch.Tensor]]:
+    """detect_step(images, K, warp=None, border=None) -> detections dict,
+    around an artifact of ``cli/export.py`` (``load_exported``, on
+    ``device``, the GPU when None): no model is built and no weights are
+    loaded. Normalise or the device warp, as ``make_detect_step``; then
+    the artifact on the float32 NHWC frames; decode here when the artifact
+    is logits-only; then ``attach_3d``, the LM kernel's two launches (the
+    artifact leaves the solve out, as the JAX artifact does)."""
+    device = resolve_device(device)
+    if exported.device != device:
+        raise ValueError(f"the artifact is loaded on {exported.device}, the step runs on {device}")
+    topk = int(cfg.DETECTOR.TOPK_CANDIDATES)
+    thresh = float(cfg.DETECTOR.SCORE_THRESH)
+    down = float(cfg.MODEL.DOWN_SAMPLE)
+
+    @torch.inference_mode()
+    def detect_step(images, K, warp=None, border=None):
+        images, K = _detect_inputs(images, K, warp, border, cfg, device)
+        out = exported(images.to(torch.float32))
+        if isinstance(out, dict):  # a --with-decode artifact
+            det = dict(out)
+        else:
+            det = decode_detections(out, score_thresh=thresh, topk=topk, down_sample=down)
+        return attach_3d(det, K, cfg)
 
     return detect_step

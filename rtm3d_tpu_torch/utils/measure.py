@@ -186,24 +186,29 @@ def unequal(a: dict, b: dict) -> list:
     return bad
 
 
-def cuboid_vertex_bias(K, down: float = 4.0) -> np.ndarray:
+def cuboid_vertex_bias(K, down: float = 4.0, depth: float = 25.0, row: float | None = None) -> np.ndarray:
     """(16,) vertex offsets in feature pixels, (dx, dy) per vertex in the LM
     solver's corner order: a car (h, w, l) = (1.53, 1.63, 3.88) at yaw 0.4,
-    centred 25 m ahead on the optical axis of K, projected relative to its
-    centre. As the constant output of the vertex head (``offset_fr_main``,
-    zero weights) it makes every peak regress a near-cuboid (exact on the
-    optical axis), on which the LM converges to a plausible box, where the
-    vertices of random weights fit no cuboid and leave the solve
-    unconverged."""
-    h, w, l, ry, z0 = 1.53, 1.63, 3.88, 0.4, 25.0
+    centred ``depth`` m ahead on the ray through the principal column and
+    feature row ``row`` of K (the optical axis when None), projected
+    relative to its centre. As the constant output of the vertex head
+    (``offset_fr_main``, zero weights) it makes every peak regress a
+    near-cuboid (exact at that point), on which the LM converges to a
+    plausible box, where the vertices of random weights fit no cuboid and
+    leave the solve unconverged. Elsewhere the pattern is a cuboid's only
+    up to perspective, so the LM accepts it (cost < 0.1) only near that
+    row: a farther car, drawing a smaller pattern, widens the band."""
+    h, w, l, ry, z0 = 1.53, 1.63, 3.88, 0.4, float(depth)
+    dv = 0.0 if row is None else row * down - K[1, 2]  # the centre's rows below the principal point
+    y0 = dv * z0 / K[1, 1]
     c, s = np.cos(ry), np.sin(ry)
     out = []
     for i in (1, -1):
         for j in (1, -1):
             for k in (1, -1):
-                x, y = i * l / 2 * c + k * w / 2 * s, j * h / 2
+                x, y = i * l / 2 * c + k * w / 2 * s, j * h / 2 + y0
                 z = -i * l / 2 * s + k * w / 2 * c + z0
-                out += [K[0, 0] * x / z / down, K[1, 1] * y / z / down]
+                out += [K[0, 0] * x / z / down, (K[1, 1] * y / z - dv) / down]
     return np.array(out, np.float32)
 
 

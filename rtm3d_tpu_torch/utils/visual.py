@@ -1,8 +1,8 @@
 """Detection drawings (reference: utils/visual_utils.py:46-251).
 
-The port's copy of ``rtm3d_tpu/utils/visual.py:1-149``: 2D and 3D boxes,
-keypoints, the three-row comparison panel and the bird's-eye view (the
-heatmap overlay, which no detect path draws, is left out). Headless:
+The port's copy of ``rtm3d_tpu/utils/visual.py``: 2D and 3D boxes,
+keypoints, the three-row comparison panel, the bird's-eye view and the
+target heatmap overlay (``cli/stats.py --vis-targets``). Headless:
 helpers draw into numpy images in place and callers write them to files.
 Every cv2 call goes through
 ``data/image_io.py``; the 3D corners come from this module's numpy
@@ -176,3 +176,29 @@ def compose_detection_panel(base_img, det, bi, K, names, gt=None):
         )
     panel = np.concatenate([row1, row2, row3], axis=0)
     return image_io.resize_linear(panel, (panel.shape[1] // 2, panel.shape[0] // 2))
+
+
+def draw_heatmap_overlay(img, m_hm, alpha=0.5):
+    """Blend the per-class center heatmap over the (denormalised uint8)
+    input frame and mark peak pixels: the headless equivalent of the
+    reference's target-inspection tool (tests/test_dataset_reader.py:
+    38-76), as ``rtm3d_tpu/utils/visual.py:152-178`` draws it.
+
+    img: (H, W, 3) uint8; m_hm: (H/d, W/d, C) in [0, 1], the JAX package's
+    NHWC layout (the port's targets are NCHW: transpose one image's map).
+    Returns uint8."""
+    H, W = img.shape[:2]
+    hm = np.asarray(m_hm, np.float32)
+    C = hm.shape[-1]
+    color = np.zeros((hm.shape[0], hm.shape[1], 3), np.float32)
+    for c in range(C):
+        col = np.array(_COLORS[c % len(_COLORS)], np.float32)
+        color += hm[..., c : c + 1] * col[None, None]
+    color = image_io.resize_linear(np.clip(color, 0, 255), (W, H))
+    out = np.clip(img.astype(np.float32) * (1 - alpha) + color * alpha, 0, 255).astype(np.uint8)
+    d = H / hm.shape[0]
+    for c in range(C):
+        ys, xs = np.where(hm[..., c] >= 1.0)
+        for y, x in zip(ys, xs):
+            image_io.fill_circle(out, (int(x * d + d / 2), int(y * d + d / 2)), 3, _COLORS[c % len(_COLORS)])
+    return out

@@ -123,5 +123,11 @@ def test_upsample_bilinear_fill_and_seeded_init():
 
 
 def test_resnet_backbone_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RTM3D(backbone_name="RESNET-18")
+    """The ResNet backbones are ported now (tests/test_torch_resnet.py):
+    ``RESNET-<depth>`` builds a PoseResNet and an unknown name raises."""
+    from rtm3d_tpu_torch.nn.resnet import PoseResNet
+
+    model = RTM3D(backbone_name="RESNET-18", kfns=("layer1", "layer2", "layer3", "layer4"))
+    assert isinstance(model.backbone, PoseResNet) and model.backbone.depth == 18
+    with pytest.raises(ValueError, match="unsupported backbone"):
+        RTM3D(backbone_name="VGG-16")
