@@ -9,7 +9,8 @@ phases of one JSON line each; any failure exits non-zero:
   device   the card (nvidia-smi name and power limit), torch and CUDA versions;
   build    compiles rtm3d_tpu_torch/csrc/*.cu (nvcc, one process per source)
            and fails if ptxas reports a spill store or load in any kernel;
-           then the AP evaluator's host C++ library, csrc/geometry.cc (c++);
+           then the host C++ libraries, csrc/geometry.cc (the AP evaluator's
+           overlap) and csrc/preproc.cc (the fused warp) (c++);
   lm_*     the LM kernel against its plain PyTorch version on the card at
            the detect path's lane counts (M = 25,600 and 38,400 for batch
            128 x top-K 100, the second call's third init being the first
@@ -98,6 +99,42 @@ phases of one JSON line each; any failure exits non-zero:
            truth written as results (score 1.0); gates: 36 finite keys, 100
            on every key with a valid ground-truth box, the same table with
            the plain overlap; the seconds of each.
+  int8_kernel  the int8 kernels (csrc/int8_conv.cu: quantize, conv_s8) on
+           every distinct conv shape of full-width DLA-34 at 1280x416
+           (configs/rtm3d_dla34_kitti_tpu.yaml; a meta-device forward finds
+           them, the 2 dead projections included): at batch 2, per-tensor
+           and per-channel scales, fp32 and bf16 inputs, bit-equal to the
+           plain versions (ops/int8_conv.py); at batch 32 in bf16 with a
+           per-tensor scale, bit-equal again, and CUDA-event times of the
+           kernels, the plain versions, F.unfold + torch._int_mm and
+           cuDNN's bf16 conv, and the bound (int8 ops at 1,979 TOP/s or
+           bytes at 3.35 TB/s), summed over the 52 convs one served
+           forward runs int8;
+  int8_logits  DLA-34 1280x416 b2 under configs/rtm3d_dla34_kitti.yaml
+           (fp32, TF32 off), mse scales, the int8 network on the card and
+           on the CPU: conv by conv, each int8 conv's own input on the card
+           through the CPU's plain versions gives the card's int8 input and
+           output bit for bit, and witnesses made wrong on purpose
+           (truncation, weight scales per input channel) must break that
+           (half-away-from-zero rounding is reported); free-running,
+           finite logits, and reported: the share of conv inputs that
+           quantize equally and each logit's gaps, beside int8's own gap
+           from float;
+  int8_cli cli.detect --int8 on the data phase's tree under the TPU config
+           with detect_cli_device's weights: calibrate (mse, 2 batches) and
+           save the scales, the gate line; again from the saved scales
+           (byte-identical files); --int8-3d-anyway (2 LM launches a batch,
+           each accepting lanes and held to the plain LM as in
+           detect_cli_device); cli.evaluate --int8 --int8-guard 0.5
+           over the test split (three finite tables; the guard's verdict is
+           recorded); 52 quantize and conv_s8 launches per int8 call; the
+           steady int8 call against the bf16 one at b32 (2D), and
+           torch.profiler over two int8 calls (chip_smoke_out/int8_profile.json);
+  fast_preproc, mosaic  the data phase's host-mode run again with
+           DATASET.FAST_PREPROC (the fused host C++ warp, csrc/preproc.cc)
+           and with IS_MOSAIC (on 4 loader workers): finite losses, one
+           splat launch a step and eval batch, host ms a batch and wall
+           img/s beside the cv2 run's;
   resnet18 configs/rtm3d_resnet18_kitti.yaml as shipped (fp32, TF32 off,
            IS_RECT, so 1280x416 on these frames; pretrained with no file)
            on the data phase's tree: resnet18_train, cli.train.main for 1
@@ -162,9 +199,10 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from rtm3d_tpu_torch.utils.measure import (
-    BATCH, FRAME_H, FRAME_W, ITERS, K_KITTI, PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS, TOPK,
-    TRAIN_BATCH, TRAIN_OBJS, compare_result_dirs, cuboid_vertex_bias, cuda_time_ms, kernel_device_ms,
-    lm_agreement, nvidia_smi, splat_edge_inputs, state_tensors, synthetic_labels, synthetic_lanes, unequal,
+    BATCH, FRAME_H, FRAME_W, ITERS, K_KITTI, PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS, PEAK_INT8_OPS, TOPK,
+    TRAIN_BATCH, TRAIN_OBJS, compare_result_dirs, cuboid_vertex_bias, cuda_time_ms, graph_device_ms, int_mm_conv,
+    kernel_device_ms, lm_agreement, nvidia_smi, splat_edge_inputs, state_tensors, synthetic_labels, synthetic_lanes,
+    unequal,
 )
 
 H, W = FRAME_H, FRAME_W
@@ -197,6 +235,17 @@ PARITY_FRAMES, PARITY_BATCH = 4, 3  # detect_cli_parity: 2 batches, the second p
 # fixes. Kernels made wrong (no prior, half the prior, 2 or 4 iterations)
 # part by at least 0.91, 2.64 and 9.13, which the gate must catch.
 PARITY_GATE = {"box_agree_share": 0.99, "score": 1e-4 + 1e-9, "angle": 0.05, "dim": 0.1, "loc": 0.4}
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+INT8_REPLACES = "no TPU kernel; XLA's int8 conv at rtm3d_tpu/nn/quant.py:254-262"
+MOSAIC_WORKERS = 4
+INT8_CHECK_BATCH = 2  # int8_kernel: the batch of the bit-equality checks (the plain conv runs in float64)
+# int8_logits: DLA-34 1280x416 b2 fp32 (TF32 off), mse scales, the int8 network on the card against the CPU.
+# Conv by conv on the card's own inputs: bit-equal. Free-running the logits are only reported beside int8's own
+# gap from float: an ulp on either side of a rounding edge travels (int8_logits_phase), so an H100 measured
+# 0.024-0.120 relative L2 card against CPU, as far as int8 from float (0.027-0.126), and a truncating network
+# 0.27: a bound there would not part sound from wrong (PERF.md).
+INT8_LOGITS_GATE = {"conv_by_conv_equal": True, "logits_finite": True}
+GATE_LINE = re.compile(r"float 2D detections (\d+), int8 (\d+), matched (\d+) \(recall ([0-9.]+)\)")
 
 
 def emit(phase: str, **fields) -> None:
@@ -426,7 +475,10 @@ def splat_phase(splat, inputs, feat_hw, num_classes: int, name: str) -> dict:
     # the per-call event time is host-bound; the kernel's own device time
     # comes from the profiler
     call_ms = cuda_time_ms(lambda: splat.splat_heatmap(*inputs, feat_hw, num_classes), 50, 3)
-    kernel_ms = kernel_device_ms(lambda: splat.splat_heatmap(*inputs, feat_hw, num_classes), 20, "splat_kernel")
+    kernel_ms, timed_by = kernel_device_ms(lambda: splat.splat_heatmap(*inputs, feat_hw, num_classes), 20,
+                                           "splat_kernel")
+    # the same launches from one CUDA graph: kernels and the gaps between them
+    graph_ms = graph_device_ms(lambda: splat.splat_heatmap(*inputs, feat_hw, num_classes), 20)
     plain_ms = cuda_time_ms(lambda: splat.splat_heatmap_reference(*inputs, feat_hw, num_classes), 5, 1)
     B, N = inputs[1].shape
     nbytes = splat.splat_bytes(B, N, feat_hw, num_classes)
@@ -438,7 +490,9 @@ def splat_phase(splat, inputs, feat_hw, num_classes: int, name: str) -> dict:
         "shape": [B, N, num_classes, *feat_hw], "max_abs_err": err, "ones_equal": ones_equal,
         "tile": list(tile), "tiles": live.numel(), "mean_live_slots_per_tile": live.mean().item(),
         "ones": int((ref == 1.0).sum().item()), "nonzero_frac": float((ref > 0).float().mean().item()),
-        "kernel_ms": kernel_ms, "kernel_us": kernel_ms * 1e3, "call_ms": call_ms, "plain_ms": plain_ms,
+        "kernel_ms": kernel_ms, "kernel_us": kernel_ms * 1e3, "timed_by": timed_by, "graph_ms": graph_ms,
+        "call_ms": call_ms,
+        "plain_ms": plain_ms,
         "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
         "bound_by": "operations" if flops / PEAK_FP32_FLOPS > nbytes / PEAK_BYTES else "bytes",
     }
@@ -857,7 +911,7 @@ def detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree: str, check
                and h["accept_agreement"] >= 0.999 and h["cost_within_1e-3"] >= 0.999 for h in held):
         raise AssertionError(f"detect_cli_device: a launch accepts no lane, or the LM kernel disagrees with its "
                              f"plain version on the CLI's lanes: {held}")
-    os.remove(device_weights)
+    # device_weights stays for the int8_cli phase, which removes it
     # the same shapes on synthetic lanes that straddle the accept threshold
     lm_detect_pair(lm, n_det, np.asarray(dcfg.DETECTOR.dim_ref, np.float32), float(dcfg.DETECTOR.DIM_PRIOR_WEIGHT), 1)
 
@@ -966,7 +1020,7 @@ def detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree: str, check
     shutil.rmtree(os.path.dirname(os.path.dirname(checkpoint)), ignore_errors=True)  # weights_device
     os.remove(weights)
     return {"launches": recs["detect_cli_device"]["lm_launches"] + parity_launches, "records": recs,
-            "max_abs_err": max(h["max_abs_cost_diff_accepted"] for h in held)}
+            "max_abs_err": max(h["max_abs_cost_diff_accepted"] for h in held), "device_weights": device_weights}
 
 
 def resnet18_phase(lm, splat, load_config, cli_train, cli_detect, cli_export, cli_stats, tree: str, smi: str) -> dict:
@@ -1172,6 +1226,483 @@ def resnet18_phase(lm, splat, load_config, cli_train, cli_detect, cli_export, cl
             "lm_max_abs_err": max(hh["max_abs_cost_diff_accepted"] for hh in held)}
 
 
+def int8_convs(quant, nn_model, load_config) -> list:
+    """Every conv of full-width DLA-34 under configs/rtm3d_dla34_kitti_tpu.yaml
+    at 1280x416 (a forward on the meta device, calibration's sweep, so the
+    dead projections are in): its shape and whether a serving forward runs
+    it int8 (the dead projections run in no forward, INT8_SKIP's stay float)."""
+    cfg = load_config(os.path.join(CONFIGS, "rtm3d_dla34_kitti_tpu.yaml"))
+    cfg.INPUT_SIZE = tuple(KITTI_RECT)
+    w, h = KITTI_RECT
+    with torch.device("meta"):
+        model = nn_model.create_model(cfg).eval()
+    mods = {p: model.get_submodule(n) for n, p in quant.conv_paths(model).items()}
+    shapes, ran = {}, set()
+    quant._sweep(model, [torch.empty(1, h, w, 3, device="meta")], lambda k, x: shapes.setdefault(k, tuple(x.shape)))
+    hooks = [m.register_forward_pre_hook(lambda m, a, k=k: ran.add(k)) for k, m in mods.items()]
+    with torch.no_grad():
+        model(torch.empty(1, 3, h, w, device="meta"))
+    for hk in hooks:
+        hk.remove()
+    skip = quant._match_fns(tuple(cfg.TPU.INT8_SKIP))
+    return [{"key": k, "cin": shapes[k][1], "cout": m.out_channels, "k": m.kernel_size[0], "stride": m.stride[0],
+             "pad": m.padding[0], "dil": m.dilation[0], "h": shapes[k][2], "w": shapes[k][3],
+             "served": k in ran and not skip(k)} for k, m in mods.items()]
+
+
+def int8_kernel_phase(int8, convs: list, smi: str) -> dict:
+    """quantize and conv_s8 against their plain versions on every distinct
+    conv shape of ``convs``, at INT8_CHECK_BATCH, per-tensor and
+    per-channel scales, fp32 and bf16 inputs: bit-equal. Then at the detect
+    batch in bf16 (the served type), per-tensor: bit-equal again, and
+    CUDA-event times of the kernels, the
+    plain versions, the library yardstick (F.unfold + torch._int_mm) and
+    cuDNN's bf16 conv, and the bound, each summed over one served forward
+    (the convs that run int8 there, each as often as it runs)."""
+    import torch.nn.functional as F
+
+    groups = {}
+    for c in convs:
+        sig = (c["cin"], c["cout"], c["k"], c["stride"], c["pad"], c["dil"], c["h"], c["w"])
+        g = groups.setdefault(sig, {"convs": 0, "served": 0})
+        g["convs"] += 1
+        g["served"] += int(c["served"])
+    rows, failed = [], []
+    for i, (sig, g) in enumerate(groups.items()):
+        cin, cout, k, stride, pad, dil, h, w = sig
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        cp = int8.padded_channels(cin)
+        wq = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, device="cuda", dtype=torch.int8)
+        packed = int8.pack_weight(wq)
+        out_scale = torch.rand(cout, generator=gen, device="cuda") * 1e-3
+        bias = torch.randn(cout, generator=gen, device="cuda")
+        scales = {"per_tensor": torch.full((cin,), 3.0 / 127.0, device="cuda"),
+                  "per_channel": torch.rand(cin, generator=gen, device="cuda") * 0.05 + 0.005}
+        x = torch.randn((INT8_CHECK_BATCH, cin, h, w), generator=gen, device="cuda").contiguous(
+            memory_format=torch.channels_last)
+        checks = {}
+        for mode, scale in scales.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                xd = x.to(dtype)
+                q, qr = int8.quantize(xd, scale, cp), int8.quantize_reference(xd, scale, cp)
+                y = int8.conv_s8(q, packed, (k, k), stride, pad, dil, out_scale, bias, dtype)
+                yr = int8.conv_s8_reference(qr, packed, (k, k), stride, pad, dil, out_scale, bias, dtype)
+                torch.cuda.synchronize()
+                checks[f"{mode}_{str(dtype)[6:]}"] = {
+                    "quantize_equal": bool(torch.equal(q, qr)), "conv_equal": bool(torch.equal(y, yr)),
+                    "quantize_max_abs_err": (q.int() - qr.int()).abs().max().item(),
+                    "max_abs_err": (y.float() - yr.float()).abs().max().item(), "finite": bool(torch.isfinite(y).all())}
+        del x, xd, q, qr, y, yr
+        # times at the detect batch, bf16 as served, per-tensor scale
+        xb = torch.randn((DETECT_BATCH, cin, h, w), generator=gen, device="cuda", dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        scale = scales["per_tensor"]
+        qb = int8.quantize(xb, scale, cp)
+        wb = torch.randn((cout, cin, k, k), generator=gen, device="cuda", dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        conv = functools.partial(int8.conv_s8, qb, packed, (k, k), stride, pad, dil, out_scale, bias, torch.bfloat16)
+        plain = functools.partial(int8.conv_s8_reference, qb, packed, (k, k), stride, pad, dil, out_scale, bias,
+                                  torch.bfloat16)
+        # bit-equal at the served batch too: M = 32*Ho*Wo spans the kernel's whole grid
+        qr, y, yr = int8.quantize_reference(xb, scale, cp), conv(), plain()
+        torch.cuda.synchronize()
+        checks["served_batch_per_tensor_bfloat16"] = {
+            "quantize_equal": bool(torch.equal(qb, qr)), "conv_equal": bool(torch.equal(y, yr)),
+            "quantize_max_abs_err": (qb.int() - qr.int()).abs().max().item(),
+            "max_abs_err": (y.float() - yr.float()).abs().max().item(), "finite": bool(torch.isfinite(y).all())}
+        del qr, y, yr
+        t = {"quantize_ms": cuda_time_ms(lambda: int8.quantize(xb, scale, cp), 5, 1),
+             "conv_ms": cuda_time_ms(conv, 5, 1),
+             "plain_quantize_ms": cuda_time_ms(lambda: int8.quantize_reference(xb, scale, cp), 1, 1),
+             "plain_conv_ms": cuda_time_ms(plain, 1, 0),
+             "library_ms": cuda_time_ms(lambda: int_mm_conv(qb, wq, stride, pad, dil), 2, 1),
+             "cudnn_bf16_ms": cuda_time_ms(lambda: F.conv2d(xb, wb, stride=stride, padding=pad, dilation=dil), 5, 1)}
+        ops = int8.conv_s8_ops(DETECT_BATCH, cin, h, w, cout, (k, k), stride, pad, dil)
+        nbytes = int8.conv_s8_bytes(DETECT_BATCH, cin, h, w, cout, (k, k), stride, pad, dil, 2)
+        qbytes = int8.quantize_bytes(DETECT_BATCH, cin, h, w, 2)
+        row = {"cin": cin, "cout": cout, "k": k, "stride": stride, "pad": pad, "dil": dil, "hw": [h, w],
+               "convs": g["convs"], "served_per_forward": g["served"], "checks": checks, **t,
+               "ops": ops, "bytes": nbytes, "conv_bound_ms": max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3,
+               "conv_bound_by": "operations" if ops / PEAK_INT8_OPS > nbytes / PEAK_BYTES else "bytes",
+               "quantize_bytes": qbytes, "quantize_bound_ms": qbytes / PEAK_BYTES * 1e3}
+        row["conv_tops"] = ops / (t["conv_ms"] / 1e3) / 1e12
+        rows.append(row)
+        if not all(c["quantize_equal"] and c["conv_equal"] and c["finite"] for c in checks.values()):
+            failed.append(row)
+        del xb, qb, wb, conv, plain
+        torch.cuda.empty_cache()
+
+    def total(key):
+        return sum(r[key] * r["served_per_forward"] for r in rows)
+
+    ops_bound = sum(r["ops"] / PEAK_INT8_OPS * 1e3 * r["served_per_forward"] for r in rows)
+    bytes_bound = sum(r["bytes"] / PEAK_BYTES * 1e3 * r["served_per_forward"] for r in rows)
+    rec = {"card": smi, "model": "DLA-34 rtm3d_dla34_kitti_tpu.yaml", "input": f"{KITTI_RECT[0]}x{KITTI_RECT[1]}",
+           "convs": len(convs), "distinct_shapes": len(rows), "served_int8_convs_per_forward": sum(
+               r["served_per_forward"] for r in rows), "check_batch": INT8_CHECK_BATCH, "time_batch": DETECT_BATCH,
+           "forward": {k: total(k) for k in ("quantize_ms", "conv_ms", "plain_quantize_ms", "plain_conv_ms",
+                                             "library_ms", "cudnn_bf16_ms", "conv_bound_ms", "quantize_bound_ms")},
+           "forward_conv_bound_by": "operations" if ops_bound > bytes_bound else "bytes",
+           "max_abs_err": max(c["max_abs_err"] for r in rows for c in r["checks"].values()),
+           "quantize_max_abs_err": max(c["quantize_max_abs_err"] for r in rows for c in r["checks"].values()),
+           "rows": rows}
+    emit("int8_kernel", **rec)
+    if failed:
+        raise AssertionError(f"int8_kernel: a kernel disagrees with its plain version: {failed}")
+    return rec
+
+
+def int8_logits_phase(int8, quant, nn_model, load_config, normalize_images, smi: str) -> dict:
+    """DLA-34 at 1280x416 b2 under configs/rtm3d_dla34_kitti.yaml (fp32, TF32
+    off), mse scales calibrated on the card, INT8_SKIP applied: the int8
+    network on the card (the kernels) and on the CPU (the plain versions).
+
+    Conv by conv: each int8 conv's own float input, recorded on the card,
+    goes through the CPU's plain quantize and conv; the card's int8 input
+    and output must equal them bit for bit (INT8_LOGITS_GATE
+    ``conv_by_conv_equal``). Witnesses on the card, on the same recorded
+    inputs, that quantize or pack wrong on purpose must break that equality
+    (truncation; weight scales per input channel); half-away-from-zero
+    rounding differs on exact ties only, and is reported.
+
+    Free-running: the card's and the CPU's networks each on their own
+    float activations. An fp32 difference of an ulp that puts one input on
+    the other side of a rounding edge changes one int8 value, which moves
+    the next conv's outputs by a step and their inputs across edges in turn:
+    the two int8 networks part far more than the two float ones, as far as
+    int8 parts from float. So the card's logits are held to be finite only,
+    and reported: the share of conv inputs that quantize equally and each
+    logit's gaps beside the int8 network's own gap from the float one (on
+    the CPU)."""
+    import copy
+
+    cfg = load_config(os.path.join(CONFIGS, "rtm3d_dla34_kitti.yaml"))
+    cfg.INPUT_SIZE = tuple(KITTI_RECT)
+    w, h = KITTI_RECT
+    model = nn_model.create_model(cfg, torch.Generator().manual_seed(0)).eval()
+    frames = torch.from_numpy((np.random.RandomState(8).rand(2, h, w, 3) * 255).astype(np.uint8))
+    x = normalize_images(frames, cfg)
+    scales = quant.calibrate_act_scales(copy.deepcopy(model).cuda(), [x.cuda()], method="mse")
+    qmodel = quant.quantize_model(model, quant.skip_scales(scales, tuple(cfg.TPU.INT8_SKIP)))
+    gpu_net = copy.deepcopy(qmodel).cuda().to(memory_format=torch.channels_last).eval()
+    names = ("main_kf", "offset_fr_main", "main_offset", "vertex_offset")
+
+    def forward(net, xin):
+        """The logits on the CPU, and each QuantConv's (input, int8 input,
+        output) on the CPU, in call order."""
+        kept, hooks = [], []
+        orig = int8.quantize
+
+        def keep_q(t, scale, cpad):
+            q = orig(t, scale, cpad)
+            kept[-1][1] = q.cpu()
+            return q
+
+        keep_q.launches = 0  # the kernel's wrapper counts on whatever quantize names
+        for m in net.modules():
+            if isinstance(m, quant.QuantConv):
+                hooks.append(m.register_forward_pre_hook(
+                    lambda mod, a: kept.append([a[0].to("cpu", copy=True), None, None, mod])))
+                hooks.append(m.register_forward_hook(lambda mod, a, o: kept[-1].__setitem__(2, o.to("cpu", copy=True))))
+        int8.quantize = keep_q
+        try:
+            with torch.inference_mode():
+                logits = [t.float().cpu() for t in net(xin.permute(0, 3, 1, 2))]
+        finally:
+            int8.quantize = orig
+            for hk in hooks:
+                hk.remove()
+        return logits, kept
+
+    def gaps(got, want):
+        return {n: {"rel_l2": ((g - c).norm() / c.norm()).item(), "max_abs_rel": ((g - c).abs().max() / c.abs().max()).item()}
+                for n, g, c in zip(names, got, want)}
+
+    gpu, kept_gpu = forward(gpu_net, x.cuda())
+    t0 = time.perf_counter()
+    cpu, kept_cpu = forward(qmodel, x)
+    cpu_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        float_cpu = [t.float() for t in model(x.permute(0, 3, 1, 2))]
+    total = sum(k[1].numel() for k in kept_cpu)
+
+    # conv by conv: the card's convs against the CPU's plain versions on the
+    # card's own inputs
+    by_name = {id(m): n for n, m in gpu_net.named_modules()}
+    order = [by_name[id(k[3])] for k in kept_gpu]
+    cpu_by_name = dict(qmodel.named_modules())
+    plain = []
+    with torch.inference_mode():
+        for name, (xin, _, _, _) in zip(order, kept_gpu):
+            mod = cpu_by_name[name]
+            scale, _, _, _ = mod.pack()
+            plain.append((int8.quantize_reference(xin, scale, int8.padded_channels(mod.in_channels)), mod(xin)))
+    q_equal = sum(int((k[1] == p[0]).sum()) for k, p in zip(kept_gpu, plain))
+    y_equal = all(torch.equal(k[2], p[1]) for k, p in zip(kept_gpu, plain))
+
+    def rounded(fn):
+        def quantize(t, scale, cpad):
+            v = t.permute(0, 2, 3, 1).float() / scale
+            q = fn(v).clamp_(-127, 127).to(torch.int8)
+            return torch.nn.functional.pad(q, (0, cpad - q.shape[-1])).contiguous()
+        return quantize
+
+    @torch.no_grad()
+    def pack_s_w_per_input_channel(conv):
+        scale, _, out_scale, bias = orig_pack(conv)
+        w_ = conv.weight.detach().float()
+        s_in = (w_.abs().amax(dim=(0, 2, 3)) / torch.tensor(127.0, device=w_.device)).clamp_min(1e-12)
+        wq = torch.round(w_ / s_in[None, :, None, None]).clamp_(-127, 127).to(torch.int8)
+        return scale, int8.pack_weight(wq), out_scale, bias
+
+    orig_quantize, orig_pack = int8.quantize, quant.QuantConv.pack
+    gpu_mods = dict(gpu_net.named_modules())
+    witnesses = {}
+    for wname, variant in (("half_away_from_zero", rounded(lambda v: torch.sign(v) * torch.floor(v.abs() + 0.5))),
+                           ("truncate", rounded(torch.trunc)), ("s_w_per_input_channel", None)):
+        if variant is None:
+            quant.QuantConv.pack = pack_s_w_per_input_channel
+        else:
+            variant.launches = 0
+            int8.quantize = variant
+        unequal_convs = 0
+        try:
+            with torch.inference_mode():
+                for name, (xin, _, _, _), (_, y_plain) in zip(order, kept_gpu, plain):
+                    mod = gpu_mods[name]
+                    mod._packed = None
+                    unequal_convs += not torch.equal(mod(xin.cuda()).cpu(), y_plain)
+                    mod._packed = None
+        finally:
+            int8.quantize, quant.QuantConv.pack = orig_quantize, orig_pack
+        witnesses[wname] = {"convs_unequal": unequal_convs, "caught": unequal_convs > 0}
+    rec = {"card": smi, "input": f"{w}x{h}", "batch": 2, "dtype": "float32, TF32 off", "scales": "mse",
+           "quantized_convs": len(kept_cpu), "quantized_values": total,
+           "conv_by_conv": {"quantized_equal_share": q_equal / total, "outputs_equal": y_equal},
+           "free_running": {"quantized_equal_share": sum(int((a[1] == b[1]).sum())
+                                                         for a, b in zip(kept_gpu, kept_cpu)) / total,
+                            "convs_with_an_unequal_input": sum(not torch.equal(a[1], b[1])
+                                                               for a, b in zip(kept_gpu, kept_cpu)),
+                            "logits_card_vs_cpu": gaps(gpu, cpu), "logits_int8_vs_float_cpu": gaps(cpu, float_cpu)},
+           "logits_finite": all(bool(torch.isfinite(t).all()) for t in gpu),
+           "cpu_forward_s": cpu_s, "gate": INT8_LOGITS_GATE, "witnesses": witnesses}
+    emit("int8_logits", **rec)
+    if q_equal != total or not y_equal or not rec["logits_finite"]:
+        raise AssertionError(f"int8_logits: the card's int8 network leaves the gate: {rec}")
+    if not (witnesses["truncate"]["caught"] and witnesses["s_w_per_input_channel"]["caught"]):
+        raise AssertionError(f"int8_logits: a network quantized wrong on purpose passes conv by conv: {rec}")
+    del gpu_net, kept_gpu, kept_cpu, plain
+    torch.cuda.empty_cache()
+    return rec
+
+
+def int8_cli_phase(lm, int8, quant, nn_model, load_config, cli_detect, cli_evaluate, tree: str, weights: str,
+                   served_convs: int, smi: str) -> dict:
+    """int8 serving through the port's CLIs on the data phase's tree,
+    configs/rtm3d_dla34_kitti_tpu.yaml as it stands (1280x416, b32, bf16,
+    device warp), the device-mode checkpoint with detect_cli_device's vertex
+    head: calibrate (mse, 2 batches) and save the scales, serve 2D, the gate
+    line; serve again from the saved scales (byte-identical files); serve
+    with --int8-3d-anyway (2 LM launches a batch, each accepting lanes and
+    held to the plain LM);
+    evaluate --int8 --int8-guard 0.5 on the test split. Then the steady int8
+    call against the bf16 call at the same shape (CUDA events) and
+    torch.profiler over two int8 calls (chip_smoke_out/int8_profile.json).
+    Every int8 detect call launches quantize and conv_s8 ``served_convs``
+    times."""
+    root = os.path.dirname(tree)
+    config = os.path.join(CONFIGS, "rtm3d_dla34_kitti_tpu.yaml")
+    cfg = load_config(config)
+    n_det = DETECT_BATCH * int(cfg.DETECTOR.TOPK_CANDIDATES)
+    scales_file = os.path.join(root, "int8_scales.json")
+    common = ["--model-config", config, "--data-path", tree, "--split", "train", "--batch-size", str(DETECT_BATCH),
+              "--checkpoint", weights, "--int8"]
+    recs, launches = {}, {}
+
+    def run(name, extra, route=None):
+        int8.quantize.launches = int8.conv_s8.launches = 0
+        out_dir = os.path.join(root, f"results_{name}")
+        summary, n_lm, printed = detect_run(lm, cli_detect, common + ["--out-dir", out_dir] + extra, route)
+        launches[name] = {"quantize": int8.quantize.launches, "conv_s8": int8.conv_s8.launches, "lm": n_lm}
+        batches = len(summary["batch_s"])
+        rec = {"card": smi, "img_size": summary["img_size"], "images": summary["images"], "batches": batches,
+               "result_files": len(os.listdir(out_dir)), "call_ms": [1e3 * t for t in summary["batch_s"]],
+               "steady_call_ms": 1e3 * float(np.mean(summary["batch_s"][1:])),
+               "device_images_per_s": summary["device_images_per_s"], "wall_images_per_s": summary["wall_images_per_s"],
+               "launches": launches[name]}
+        if summary["images"] != DATA_TRAIN or rec["result_files"] != DATA_TRAIN or summary["img_size"] != KITTI_RECT:
+            emit(name, **rec)
+            raise AssertionError(f"{name}: expected a result file for each of {DATA_TRAIN} frames at {KITTI_RECT}")
+        return rec, out_dir, printed, batches
+
+    rec, dir1, printed, batches = run("int8_cli_calibrated", ["--calib-scales", scales_file])
+    gate = GATE_LINE.search(printed)
+    rec.update(gate_line=next((l for l in printed.splitlines() if "int8 gate" in l), None),
+               calibrated="int8: calibrated 58 conv activation scales (mse)" in printed,
+               serving_2d="int8: serving 2D-only" in printed,
+               gate={k: float(v) for k, v in zip(("float", "int8", "matched", "recall"), gate.groups())} if gate else None)
+    recs["int8_cli_calibrated"] = rec
+    emit("int8_cli_calibrated", **rec)
+    # the gate's 2 calibration batches run the int8 step too
+    want = served_convs * (batches + 2)
+    if (not rec["calibrated"] or not rec["serving_2d"] or gate is None or not os.path.exists(scales_file)
+            or launches["int8_cli_calibrated"] != {"quantize": want, "conv_s8": want, "lm": 0}):
+        raise AssertionError(f"int8_cli_calibrated: no calibration, gate line or scales file, or other than "
+                             f"{served_convs} int8 convs per call and no LM: {rec}")
+
+    rec, dir2, printed, batches = run("int8_cli_loaded", ["--calib-scales", scales_file])
+    names = sorted(os.listdir(dir1))
+    rec["files_byte_identical"] = names == sorted(os.listdir(dir2)) and all(
+        open(os.path.join(dir1, n), "rb").read() == open(os.path.join(dir2, n), "rb").read() for n in names)
+    rec["gate_skipped_notice"] = "int8 gate skipped" in printed
+    recs["int8_cli_loaded"] = rec
+    emit("int8_cli_loaded", **rec)
+    want = served_convs * batches
+    if (not rec["files_byte_identical"] or not rec["gate_skipped_notice"]
+            or launches["int8_cli_loaded"] != {"quantize": want, "conv_s8": want, "lm": 0}):
+        raise AssertionError(f"int8_cli_loaded: the scales from disk serve other files, or the launches are off: {rec}")
+
+    calls = []
+    rec, _, _, batches = run("int8_cli_3d", ["--calib-scales", scales_file, "--int8-3d-anyway", "--int8-no-gate"],
+                             keeper(calls))
+    held = lm_held(lm, calls, n_det)
+    rec.update(accepted_lanes=[hh["accepted_lanes"] for hh in held], lm_held=held)
+    recs["int8_cli_3d"] = rec
+    emit("int8_cli_3d", **rec)
+    want = served_convs * batches
+    if (launches["int8_cli_3d"] != {"quantize": want, "conv_s8": want, "lm": 2 * batches} or len(held) != 2 * batches
+            or not all(hh["finite"] and hh["accepted_lanes"] >= 1 and hh["accepted_lanes_plain"] >= 1
+                       and hh["accept_agreement"] >= 0.999 and hh["cost_within_1e-3"] >= 0.999 for hh in held)):
+        raise AssertionError(f"int8_cli_3d: other than 2 LM launches a batch, a launch accepts no lane, or the LM "
+                             f"kernel disagrees with its plain version on the int8 lanes: {rec}")
+
+    # evaluate --int8 --int8-guard 0.5 over the test split: the guard's
+    # verdict is recorded (exit code 3 carries the three tables)
+    int8.quantize.launches = int8.conv_s8.launches = lm.lm_solve.launches = 0
+    ev = ["--model-config", config, "--data-path", tree, "--split", "test", "--checkpoint", weights, "--batch-size",
+          str(DETECT_BATCH), "--int8", "--int8-guard", "0.5", "--out-dir", os.path.join(root, "results_int8_eval")]
+    t0 = time.perf_counter()
+    try:
+        tables, tripped = echoed(cli_evaluate.main, ev)[0], False
+    except cli_evaluate.Int8GuardTripped as e:
+        tables, tripped = e.results, True
+    torch.cuda.synchronize()
+    launches["int8_evaluate"] = {"quantize": int8.quantize.launches, "conv_s8": int8.conv_s8.launches,
+                                 "lm": lm.lm_solve.launches}
+    rec = {"card": smi, "split": "test", "seconds": time.perf_counter() - t0, "guard": 0.5, "guard_tripped": tripped,
+           "tables": tables, "launches": launches["int8_evaluate"]}
+    recs["int8_evaluate"] = rec
+    emit("int8_evaluate", **rec)
+    if (sorted(tables) != ["delta", "float", "int8"] or not all(
+            len(t) == 36 and all(np.isfinite(v) for v in t.values()) for t in tables.values())
+            or launches["int8_evaluate"]["conv_s8"] == 0):
+        raise AssertionError(f"int8_evaluate: expected three finite 36-key tables: {rec}")
+
+    # the steady int8 call against the bf16 call, 2D as the int8 default serves
+    from rtm3d_tpu_torch.train.checkpoint import load_detect_weights
+    from rtm3d_tpu_torch.train.step import make_detect_step
+
+    cfg.INPUT_SIZE = tuple(KITTI_RECT)
+    model = nn_model.create_model(cfg)
+    load_detect_weights(weights, model)
+    scales = quant.skip_scales(quant.load_act_scales(scales_file), tuple(cfg.TPU.INT8_SKIP))
+    steps = {"int8": make_detect_step(quant.quantize_model(model, scales), cfg, with_3d=False, device="cuda"),
+             "bf16": make_detect_step(model, cfg, with_3d=False, device="cuda")}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    frames = torch.randint(0, 256, (DETECT_BATCH, KITTI_RECT[1], KITTI_RECT[0], 3), dtype=torch.uint8, device="cuda",
+                           generator=gen)
+    K = torch.from_numpy(np.tile(K_KITTI, (DETECT_BATCH, 1, 1))).cuda()
+    calls_ms = {}
+    for name in ("bf16", "int8", "int8", "bf16"):  # in turns
+        out = []
+        for _ in range(4):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            _ = {k: v.cpu() for k, v in steps[name](frames, K).items()}
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        calls_ms.setdefault(name, []).append({"first_call_ms": out[0], "steady_call_ms": float(np.mean(out[1:]))})
+    prof = profile_calls("int8_profile", lambda: steps["int8"](frames, K), 2, "chip_smoke_out/int8_profile.json")
+    int8_ms = float(np.mean([c["steady_call_ms"] for c in calls_ms["int8"]]))
+    bf16_ms = float(np.mean([c["steady_call_ms"] for c in calls_ms["bf16"]]))
+    rec = {"card": smi, "batch": DETECT_BATCH, "input": f"{KITTI_RECT[0]}x{KITTI_RECT[1]}", "with_3d": False,
+           "calls": calls_ms, "int8_steady_call_ms": int8_ms, "bf16_steady_call_ms": bf16_ms,
+           "int8_over_bf16": int8_ms / bf16_ms, "int8_profile_device_ms": prof["device_busy_ms"] / prof["calls"]}
+    recs["int8_calls"] = rec
+    emit("int8_calls", **rec)
+    del steps, model, frames
+    torch.cuda.empty_cache()
+    os.remove(weights)
+    return {"records": recs, "launches": launches}
+
+
+def fused_warp_vs_cv2(tree: str, cfg) -> dict:
+    """On one frame of the tree, one thread: ms of the fused warp (resize
+    and pad to the 1280x416 frame, normalised float32 out:
+    data/native.py::warp_normalize) against the cv2 path's resize and pad
+    (uint8 out: the host config normalises on the device)."""
+    from rtm3d_tpu_torch.data import image_io, native
+
+    name = sorted(open(os.path.join(tree, "ImageSets", "train.txt")).read().split())[0]
+    img = image_io.imread(os.path.join(tree, "training", "image_2", f"{name}.png"))
+    h0, w0 = img.shape[:2]
+    (sw, sh), r = KITTI_RECT, KITTI_RECT[0] / max(h0, w0)
+    nw, nh = int(w0 * r), int(h0 * r)
+    pad_w, pad_h = (sw - nw) // 2, (sh - nh) // 2
+    M = np.array([[r, 0, pad_w], [0, r, pad_h]], np.float32)
+
+    def cv2_path():
+        out = np.full((sh, sw, 3), image_io.mean_color(img), np.uint8)
+        out[pad_h:pad_h + nh, pad_w:pad_w + nw] = image_io.resize_linear(img, (nw, nh))
+        return out
+
+    def timed(fn, reps=10):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    return {"fused_warp_ms": timed(lambda: native.warp_normalize(img, M, (sh, sw), cfg.DATASET.MEAN, cfg.DATASET.STD)),
+            "cv2_resize_pad_ms": timed(cv2_path), "frame": [h0, w0]}
+
+
+def host_variants_phase(splat, load_config, cli_train, tree: str, cv2_rec: dict) -> dict:
+    """The data phase's host-mode run (configs/rtm3d_dla34_kitti.yaml, b16, one
+    loader thread, 1 epoch) again, with DATASET.FAST_PREPROC (the fused host
+    C++ resample), and with IS_MOSAIC on MOSAIC_WORKERS loader workers:
+    finite losses, one splat launch a step and eval batch; host ms a batch
+    and wall img/s beside the cv2 run's."""
+    root = os.path.dirname(tree)
+    config = os.path.join(CONFIGS, "rtm3d_dla34_kitti.yaml")
+    cfg = load_config(config)
+    recs = {}
+    # mosaic reads 4 frames a sample: 4 loader workers keep its epoch short
+    for name, sets in (("fast_preproc", ["DATASET.FAST_PREPROC", "True"]),
+                       ("mosaic", ["IS_MOSAIC", "True", "num_workers", str(MOSAIC_WORKERS)])):
+        weights = os.path.join(root, f"weights_{name}")
+        argv = ["--model-config", config, "--data-path", tree, "--set", "TRAINING.WEIGHTS", weights,
+                "TRAINING.CHECKPOINT_MODE", "start", "SOLVER.MAX_EPOCH", "1", *sets]
+        splat.splat_heatmap.launches = 0
+        out = cli_train.main(argv)
+        torch.cuda.synchronize()
+        n = splat.splat_heatmap.launches
+        rec = cli_record(out, int(cfg.BATCH_SIZE), MOSAIC_WORKERS if name == "mosaic" else int(cfg.get("num_workers", 0)),
+                         n)
+        rec.update(cv2_host_ms_per_batch=cv2_rec["host_ms_per_batch"],
+                   cv2_last_epoch_wall_images_per_s=cv2_rec["last_epoch_wall_images_per_s"])
+        if name == "fast_preproc":
+            rec.update(fused_warp_vs_cv2(tree, cfg))
+        recs[name] = rec
+        emit(name, **rec)
+        check_cli_run(name, rec, n, out)
+        del out
+        shutil.rmtree(weights, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return recs
+
+
 def ptxas_lines(log: str) -> list:
     """ptxas's resource lines (registers, spills) from an nvcc -Xptxas -v log."""
     return [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
@@ -1223,11 +1754,12 @@ def ab_worker(root: str, timed: bool) -> None:
         masked_out = list(inputs)
         masked_out[4] = torch.zeros_like(inputs[4])
         out = torch.empty((TRAIN_BATCH, 3, *feat_hw), device="cuda")
-        rec["splat_ms"] = kernel_device_ms(lambda: splat.splat_heatmap(*inputs, feat_hw, 3), AB_SPLAT_REPS,
-                                           "splat_kernel")
-        rec["splat_no_live_slot_ms"] = kernel_device_ms(lambda: splat.splat_heatmap(*masked_out, feat_hw, 3),
-                                                        AB_SPLAT_REPS, "splat_kernel")
-        rec["fill_ms"] = kernel_device_ms(lambda: out.fill_(0.5), AB_SPLAT_REPS, "elementwise")
+        rec["timed_by"] = {}
+        for key, fn, kernel in (("splat_ms", lambda: splat.splat_heatmap(*inputs, feat_hw, 3), "splat_kernel"),
+                                ("splat_no_live_slot_ms", lambda: splat.splat_heatmap(*masked_out, feat_hw, 3),
+                                 "splat_kernel"),
+                                ("fill_ms", lambda: out.fill_(0.5), "elementwise")):
+            rec[key], rec["timed_by"][key] = kernel_device_ms(fn, AB_SPLAT_REPS, kernel)
     print(json.dumps(rec), flush=True)
 
 
@@ -1295,6 +1827,11 @@ def kernel_ab(old_root: str, check_only: bool, out_path: str) -> int:
         runs[tag].append(json.loads(proc.stdout.strip().splitlines()[-1]))
         record("turn", version=tag, **runs[tag][-1])
     failed = []
+    # a profiler time and a CUDA-graph time (which holds the gaps between
+    # launches) are not compared
+    sources = sorted({src for turns in runs.values() for t in turns for src in t.get("timed_by", {}).values()})
+    if len(sources) > 1:
+        failed.append(("timed_by", sources))
     for tag, turns in runs.items():
         first = turns[0]
         record("sass", version=tag, lm_solver=sass_loop_counts(first["libraries"]["lm_solver"], "lm_kernel"))
@@ -1305,13 +1842,13 @@ def kernel_ab(old_root: str, check_only: bool, out_path: str) -> int:
             for name in ("splat_train_shape", "splat_edge"):
                 if t[name]["max_abs_err"] > 1e-6 or not t[name]["ones_equal"]:
                     failed.append((tag, name, t[name]))
-        if check_only:
+        if check_only or len(sources) > 1:
             continue
         lm_ms = [float(np.mean([t["lm"][i]["ms"] for t in turns])) for i in range(2)]
         lm_bound = [lm.lm_flops(e["M"], ITERS, e["prior_weight"]) / PEAK_FP32_FLOPS * 1e3 for e in first["lm"]]
         splat_bound = splat.splat_bytes(TRAIN_BATCH, TRAIN_OBJS, (H // 4, W // 4), 3) / PEAK_BYTES * 1e3
         mean = lambda key: float(np.mean([t[key] for t in turns]))
-        record("times", version=tag, nvidia_smi=smi,
+        record("times", version=tag, nvidia_smi=smi, splat_timed_by=sources[0],
                lm_ms={e["M"]: ms for e, ms in zip(first["lm"], lm_ms)}, lm_pair_ms=sum(lm_ms),
                lm_pair_bound_ms=sum(lm_bound), lm_pair_over_bound=sum(lm_ms) / sum(lm_bound),
                lm_runs_ms=[[e["ms"] for e in t["lm"]] for t in turns],
@@ -1354,6 +1891,8 @@ def main() -> int:
     from rtm3d_tpu_torch.data.synthetic import generate_kitti
     from rtm3d_tpu_torch.data.targets import heatmap_inputs
     from rtm3d_tpu_torch.nn import model as nn_model
+    from rtm3d_tpu_torch.nn import quant
+    from rtm3d_tpu_torch.ops import int8_conv as int8
     from rtm3d_tpu_torch.ops import lm_solver as lm
     from rtm3d_tpu_torch.ops import splat
     from rtm3d_tpu_torch.train import state as state_mod
@@ -1380,7 +1919,7 @@ def main() -> int:
     built = kernel_build.build()  # one nvcc per source, all at once
     # the AP evaluator's host C++ overlap, so that the evaluate phase's
     # seconds hold no build
-    host = kernel_build.build_host(["geometry"])
+    host = kernel_build.build_host(["geometry", "preproc"])
     ptxas = {n: ptxas_lines(b["log"]) for n, b in built.items()}
     spills = {n: [l for l in lines if re.search(r"[1-9]\d* bytes spill (stores|loads)", l)]
               for n, lines in ptxas.items()}
@@ -1427,21 +1966,37 @@ def main() -> int:
     phase_done("detect_cli")
     resnet = resnet18_phase(lm, splat, load_config, cli_train, cli_detect, cli_export, cli_stats, tree, smi)
     phase_done("resnet18")
+    convs = int8_convs(quant, nn_model, load_config)
+    int8_kernels = int8_kernel_phase(int8, convs, smi)
+    phase_done("int8_kernel")
+    int8_logits_phase(int8, quant, nn_model, load_config, step_mod.normalize_images, smi)
+    phase_done("int8_logits")
+    served_convs = sum(c["served"] for c in convs)
+    int8_cli = int8_cli_phase(lm, int8, quant, nn_model, load_config, cli_detect, cli_evaluate, tree,
+                              from_files_detect["device_weights"], served_convs, smi)
+    phase_done("int8_cli")
+    host_variants = host_variants_phase(splat, load_config, cli_train, tree, from_files["train_cli_host"])
+    phase_done("fast_preproc_and_mosaic")
     emit("seconds", **seconds, total=round(sum(seconds.values()), 2))
 
     pair = (first, second)
+    int8_lm = {k: v["lm"] for k, v in int8_cli["launches"].items()}
+    int8_launches = {k: {"quantize": v["quantize"], "conv_s8": v["conv_s8"]} for k, v in int8_cli["launches"].items()}
+    fwd = int8_kernels["forward"]
     print(json.dumps({"kernels": [{
         "name": "lm_solver",
         "route": "cuda",
         "source": "rtm3d_tpu_torch/csrc/lm_solver.cu",
         "replaces": LM_REPLACES,
         # 2 per detect call: the serve phase's calls, the detect CLI's
-        # batches, the ResNet-18 detect run's and the runs from its artifacts
+        # batches, the ResNet-18 detect run's and the runs from its
+        # artifacts, the int8 runs with 3D (--int8-3d-anyway, evaluate)
         "launches": (served["lm_launches"] + from_files_detect["launches"]
-                     + resnet["launches"]["resnet18_detect"] + resnet["launches"]["export_detect"]),
+                     + resnet["launches"]["resnet18_detect"] + resnet["launches"]["export_detect"]
+                     + sum(int8_lm.values())),
         "launches_by_path": {"serve": served["lm_launches"], "detect_cli": from_files_detect["launches"],
                              "resnet18_detect": resnet["launches"]["resnet18_detect"],
-                             "export_detect": resnet["launches"]["export_detect"]},
+                             "export_detect": resnet["launches"]["export_detect"], **int8_lm},
         # the largest cost gap where both accept: the lm phases' lanes and
         # every launch of detect_cli_device and of the resnet18 phase's
         # detect runs; the times are those of the pair of launches at
@@ -1459,12 +2014,15 @@ def main() -> int:
         "source": "rtm3d_tpu_torch/csrc/splat.cu",
         "replaces": SPLAT_REPLACES,
         # one launch per train step and eval batch: the timed steps of the
-        # train phase, the data phase's three runs of the CLI and the
-        # ResNet-18 run; one per overlay of cli.stats --vis-targets
+        # train phase, the data phase's three runs of the CLI, the
+        # FAST_PREPROC and mosaic runs and the ResNet-18 run; one per overlay
+        # of cli.stats --vis-targets
         "launches": (trained["splat_launches"] + sum(r["splat_launches"] for r in from_files.values())
+                     + sum(r["splat_launches"] for r in host_variants.values())
                      + resnet["launches"]["resnet18_train"] + resnet["launches"]["stats"]),
         "launches_by_path": {"train": trained["splat_launches"],
                              **{k: r["splat_launches"] for k, r in from_files.items()},
+                             **{k: r["splat_launches"] for k, r in host_variants.items()},
                              "resnet18_train": resnet["launches"]["resnet18_train"],
                              "stats": resnet["launches"]["stats"]},
         # at the train phase's shape, on the edge batch and at both data
@@ -1472,10 +2030,44 @@ def main() -> int:
         "max_abs_err": max([r["max_abs_err"] for r in (splat_main, splat_edge, *data_splats.values())]
                            + [resnet["splat_max_abs_err"]]),
         "ms": splat_main["kernel_ms"],
+        # "profiler" (the kernel alone) or "graph" (kernel_device_ms)
+        "timed_by": splat_main["timed_by"],
         "plain_ms": splat_main["plain_ms"],
         "bound_ms": splat_main["bound_ms"],
         "bound_by": splat_main["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "int8_quantize",
+        "route": "cuda",
+        "source": "rtm3d_tpu_torch/csrc/int8_conv.cu",
+        "replaces": INT8_REPLACES,
+        # once per int8 conv of each int8 detect call: the int8_cli phase's
+        # CLI runs and the int8 detect of evaluate --int8
+        "launches": sum(v["quantize"] for v in int8_launches.values()),
+        "launches_by_path": {k: v["quantize"] for k, v in int8_launches.items()},
+        # bit-equal on every distinct conv shape (int8_kernel); the times are
+        # summed over the int8 convs of one b32 1280x416 bf16 forward
+        "max_abs_err": int8_kernels["quantize_max_abs_err"],
+        "ms": fwd["quantize_ms"],
+        "plain_ms": fwd["plain_quantize_ms"],
+        "bound_ms": fwd["quantize_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "rtm3d_tpu_torch/csrc/int8_conv.cu",
+        "replaces": INT8_REPLACES,
+        "launches": sum(v["conv_s8"] for v in int8_launches.values()),
+        "launches_by_path": {k: v["conv_s8"] for k, v in int8_launches.items()},
+        "max_abs_err": int8_kernels["max_abs_err"],
+        "ms": fwd["conv_ms"],
+        "plain_ms": fwd["plain_conv_ms"],
+        "bound_ms": fwd["conv_bound_ms"],
+        "bound_by": int8_kernels["forward_conv_bound_by"],
+        # im2col (F.unfold) + torch._int_mm on the same convs
+        "library_ms": fwd["library_ms"],
+        "cudnn_bf16_ms": fwd["cudnn_bf16_ms"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,18 +24,31 @@ loader ships raw canvases and the step resamples them on the device. The
 port serves on one device; ``--device`` is ``cuda`` by default, and without
 a GPU the run raises unless it is given ``--device cpu``.
 
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md, queue A):
-``--int8`` and its options (int8 PTQ).
+``--int8`` serves the post-training quantized network (``nn/quant.py``,
+``rtm3d_tpu/cli/detect.py:44-81,170-195,288-410``): activation scales from
+``--calib-scales`` when that file exists, else calibrated (``--calib-method``,
+``mse`` by default) over the first ``--calib-batches`` batches of the split
+through the detect step's own input stage, on the fp32 network with TF32
+off, and saved to ``--calib-scales`` when it is given; then
+``TPU.INT8_SKIP`` keeps the matching convs in float. It serves 2D only
+unless ``--int8-3d-anyway``. After a calibration, the float-consistency
+gate (``--int8-no-gate`` skips it) decodes the calibration batches' real
+rows through the float and the int8 step at ``TPU.COMPUTE_DTYPE`` and
+matches their 2D detections greedily by class and IoU >= 0.5: one line, a
+WARNING under recall 0.9. The JAX export holds no int8 program, so
+``--from-export`` with ``--int8`` is refused.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import os
 import time
 
 import numpy as np
+import torch
 
 from rtm3d_tpu_torch.config import load_config
 from rtm3d_tpu_torch.data.kitti import create_dataset
@@ -56,24 +69,21 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", type=str, default=None)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    # the JAX CLI's int8 options: not ported yet, they raise
-    p.add_argument("--int8", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--int8-3d-anyway", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--int8-no-gate", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--calib-batches", type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--calib-method", type=str, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--calib-scales", type=str, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--int8", action="store_true",
+                   help="serve the int8 network (post-training quantized convs, nn/quant.py); 2D only unless "
+                   "--int8-3d-anyway: the 3D residual acceptance needs vertex precision int8 features do not carry")
+    p.add_argument("--int8-3d-anyway", action="store_true",
+                   help="run the 3D solve under --int8 all the same")
+    p.add_argument("--int8-no-gate", action="store_true",
+                   help="skip the int8-vs-float 2D consistency gate over the calibration batches")
+    p.add_argument("--calib-batches", type=int, default=2, help="batches swept for int8 calibration")
+    p.add_argument("--calib-method", type=str, default="mse", choices=("mse", "absmax", "p99.9", "p99.99"),
+                   help="activation clip: MSE-optimal grid search (default), absmax or a percentile of |x|")
+    p.add_argument("--calib-scales", type=str, default=None,
+                   help="JSON of activation scales: loaded when it exists, else written after calibration")
     p.add_argument("--from-export", type=str, default=None, help="serve this cli.export artifact")
     p.add_argument("--set", nargs="*", default=[])
     return p.parse_args(argv)
-
-
-def refuse_unported(args) -> None:
-    int8 = [f for f, on in (("--int8", args.int8), ("--int8-3d-anyway", args.int8_3d_anyway),
-                            ("--int8-no-gate", args.int8_no_gate), ("--calib-batches", args.calib_batches),
-                            ("--calib-method", args.calib_method), ("--calib-scales", args.calib_scales)) if on]
-    if int8:
-        raise NotImplementedError(f"{', '.join(int8)}: int8 serving is not ported yet (ROADMAP.md, queue A: int8 PTQ)")
 
 
 def original_frame_boxes(bbox2d: np.ndarray, shape, resize_max_side: int, img_size) -> np.ndarray:
@@ -101,7 +111,8 @@ def main(argv=None) -> dict:
     writes included) with their images/s, and per batch ``batch_s`` (each
     call) and ``wait_s`` (the loop's wait for the batch)."""
     args = parse_args(argv)
-    refuse_unported(args)
+    if args.from_export and args.int8:
+        raise ValueError("--int8 quantizes the network, and an export holds no int8 program: drop --from-export")
     device = resolve_device(None if args.device == "cuda" else args.device)
     cfg = load_config(args.model_config, args.set)
     if args.data_path:
@@ -128,7 +139,10 @@ def main(argv=None) -> dict:
     else:
         model = create_model(cfg)
         load_detect_weights(args.checkpoint or cfg.DETECTOR.CHECKPOINT, model)
-        detect = make_detect_step(model, cfg, with_3d=True, device=device)
+        if args.int8:
+            detect = _int8_detect_step(args, cfg, model, ds, batch_size, device)
+        else:
+            detect = make_detect_step(model, cfg, with_3d=True, device=device)
     loader = DataLoader(
         ds, batch_size, shuffle=False, drop_last=False, num_shards=1, shard_index=0,
         pad_final=True,  # one batch shape; the padded tail is skipped below
@@ -181,10 +195,110 @@ def main(argv=None) -> dict:
             "batch_s": batch_s, "wait_s": wait_s}
 
 
+def _int8_detect_step(args, cfg, model, ds, batch_size: int, device):
+    """The int8 detect step (2D only unless ``--int8-3d-anyway``): scales
+    loaded or calibrated (``_int8_scales``), ``TPU.INT8_SKIP`` applied, the
+    quantized copy of ``model`` served by ``make_detect_step``; then the
+    float-consistency gate over the calibration batches, or the notice that
+    it was skipped."""
+    from rtm3d_tpu_torch.nn import quant
+
+    scales, calib = _int8_scales(args, cfg, model, ds, batch_size, device)
+    skip = tuple(cfg.TPU.get("INT8_SKIP", ()))
+    if skip:
+        scales = quant.skip_scales(scales, skip)
+    qmodel = quant.quantize_model(model, scales)
+    with_3d = args.int8_3d_anyway
+    if not with_3d:
+        print("int8: serving 2D-only (the 3D residual gate keeps at most ~41% of float 3D detections under int8, "
+              "best of a 4-scheme calibration sweep of the JAX package); pass --int8-3d-anyway to emit 3D "
+              "output, or serve bf16")
+    if calib and not args.int8_no_gate:
+        int8_float_gate(cfg, model, qmodel, calib, device)
+    elif not args.int8_no_gate:
+        print("int8 gate skipped (scales loaded from disk; pass --calib-batches without --calib-scales, or run "
+              "evaluate --int8-guard for the gt-scored gate)")
+    return make_detect_step(qmodel, cfg, with_3d=with_3d, device=device)
+
+
+def _int8_scales(args, cfg, model, ds, batch_size: int, device):
+    """(scales, calib): the scales of ``--calib-scales`` when the file
+    exists (calib None), else calibrated over the first ``--calib-batches``
+    batches, each through the detect step's input stage (the device warp,
+    or the uint8 normalisation), on an fp32 copy of ``model`` on ``device``
+    with TF32 off; calib is [(frames, real rows)] for the gate."""
+    from rtm3d_tpu_torch.nn import quant
+    from rtm3d_tpu_torch.train.step import _detect_inputs
+
+    if args.calib_scales and os.path.exists(args.calib_scales):
+        scales = quant.load_act_scales(args.calib_scales)
+        print(f"int8: loaded {len(scales)} activation scales from {args.calib_scales}")
+        return scales, None
+    loader = DataLoader(ds, batch_size, shuffle=False, drop_last=False, num_shards=1, shard_index=0,
+                        pad_final=True)
+    calib = []
+    for batch in loader:
+        if len(calib) >= max(args.calib_batches, 1):
+            break
+        frames, _ = _detect_inputs(batch["image"], batch["calib"].reshape(-1, 3, 3), batch.get("warp"),
+                                   batch.get("border"), cfg, device)
+        calib.append((frames, int(batch["num_valid"])))
+    net = copy.deepcopy(model).to(device=device, dtype=torch.float32).eval()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        scales = quant.calibrate_act_scales(net, [f for f, _ in calib], method=args.calib_method)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del net
+    print(f"int8: calibrated {len(scales)} conv activation scales ({args.calib_method}) over {len(calib)} batches")
+    if args.calib_scales:
+        quant.save_act_scales(args.calib_scales, scales)
+    return scales, calib
+
+
+def int8_float_gate(cfg, model, qmodel, calib, device, iou_thresh: float = 0.5) -> dict:
+    """The default serving gate (``rtm3d_tpu/cli/detect.py:341-410``): the
+    calibration batches' real rows through the float and the int8 detect
+    steps (2D, ``TPU.COMPUTE_DTYPE``), their score-gated 2D detections
+    matched greedily one to one by class and IoU >= ``iou_thresh``. Prints
+    one line, a WARNING when int8 keeps under 90% of the float detections;
+    returns the counts and the recall."""
+    from rtm3d_tpu_torch.eval.ap import iou_2d_matrix
+
+    steps = [make_detect_step(m, cfg, with_3d=False, device=device) for m in (model, qmodel)]
+    n_float = n_int8 = n_matched = 0
+    for frames, nv in calib:
+        K = torch.zeros((frames.shape[0], 3, 3), dtype=torch.float32, device=frames.device)
+        df, dq = ({k: v.cpu().numpy() for k, v in step(frames, K).items()} for step in steps)
+        for bi in range(nv):
+            vf, vq = df["valid"][bi], dq["valid"][bi]
+            n_float += int(vf.sum())
+            n_int8 += int(vq.sum())
+            if not (vf.any() and vq.any()):
+                continue
+            iou = iou_2d_matrix(df["bbox2d"][bi][vf].astype(np.float64), dq["bbox2d"][bi][vq].astype(np.float64))
+            iou[df["cls"][bi][vf][:, None] != dq["cls"][bi][vq][None, :]] = 0.0
+            while iou.size and iou.max() >= iou_thresh:  # greedy one-to-one by IoU
+                i, j = np.unravel_index(np.argmax(iou), iou.shape)
+                n_matched += 1
+                iou[i, :] = 0.0
+                iou[:, j] = 0.0
+    recall = n_matched / n_float if n_float else 1.0
+    line = (f"int8 gate (float-reference, {len(calib)} calib batches): float 2D detections {n_float}, "
+            f"int8 {n_int8}, matched {n_matched} (recall {recall:.2f})")
+    if recall < 0.9:
+        print(f"WARNING: {line} — int8 is dropping float detections; run evaluate --int8-guard before deploying")
+    else:
+        print(line)
+    return {"float": n_float, "int8": n_int8, "matched": n_matched, "recall": recall}
+
+
 def save_vis(out_dir: str, cfg, batch, det, bi: int, name: str) -> None:
     """``<name>.png`` (2D boxes, keypoints, 3D boxes on the input frame),
     ``<name>_panel.png`` (the three-row comparison with the ground truth)
-    and ``<name>_bev.png`` (bird's-eye view), as the JAX CLI draws them."""
+    and ``<name>_bev.png`` (bird's-eye view), as the JAX CLI draws them;
+    2D-only detections (int8 serving) draw the first alone, without 3D boxes."""
     from rtm3d_tpu_torch.data import image_io
     from rtm3d_tpu_torch.utils.visual import (
         compose_detection_panel, denormalize, draw_bbox2d, draw_bbox3d, draw_birdview, draw_keypoints,
@@ -205,13 +319,16 @@ def save_vis(out_dir: str, cfg, batch, det, bi: int, name: str) -> None:
     K = batch["calib"][bi].reshape(3, 3)
     acc = det["accepted"][bi]
     names = list(cfg.DATASET.OBJs)
+    has_3d = "dim" in det
     if acc.any():
         draw_bbox2d(img, det["bbox2d"][bi][acc], det["cls"][bi][acc], det["scores"][bi][acc], names)
         draw_keypoints(img, det["m_proj"][bi][acc])
-        for i in np.where(acc)[0]:
+        for i in np.where(acc)[0] if has_3d else ():
             draw_bbox3d(img, det["dim"][bi][i], det["loc"][bi][i], det["ry"][bi][i], K)
     os.makedirs(out_dir, exist_ok=True)
     image_io.imwrite_png(os.path.join(out_dir, f"{name}.png"), img)
+    if not has_3d:
+        return  # the panel and the bird's-eye view draw 3D boxes
     labels = batch["labels"]
     m = labels["mask"][bi]
     gt3d = list(zip(labels["dim"][bi][m], labels["loc"][bi][m], labels["ry"][bi][m]))

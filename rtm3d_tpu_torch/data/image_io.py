@@ -2,7 +2,7 @@
 
 OpenCV is on the GPU machine (cv2 4.13) as it is where the JAX package
 runs, so each function calls cv2 exactly as the JAX package does
-(``rtm3d_tpu/data/kitti.py:31,167,282-289``, ``transforms.py:97,125,137``,
+(``rtm3d_tpu/data/kitti.py:31,167,282-289,349``, ``transforms.py:97,125,137,214-222``,
 ``synthetic.py:78-93``), and the port's host pipeline is bit-exact with
 it. ``cv2.setNumThreads(0)`` keeps cv2's own thread pool out of the
 loader's forked workers (``kitti.py:31``).
@@ -50,6 +50,12 @@ def warp_affine_linear(img: np.ndarray, M: np.ndarray, size: Tuple[int, int],
     pixels from outside the source take ``border_value``."""
     return cv2.warpAffine(img, M, dsize=tuple(size), flags=cv2.INTER_LINEAR,
                           borderValue=tuple(float(v) for v in border_value))
+
+
+def rotation_matrix(angle: float, center: Tuple[float, float], scale: float) -> np.ndarray:
+    """The 2x3 rotation by ``angle`` degrees about ``center`` with ``scale``
+    (``cv2.getRotationMatrix2D``)."""
+    return cv2.getRotationMatrix2D(angle=angle, center=center, scale=scale)
 
 
 def fill_rectangle(img: np.ndarray, p1: Tuple[int, int], p2: Tuple[int, int], color) -> None:

@@ -16,7 +16,7 @@ per-image mean colour (bbox/K principal point shifted, reference
 ``_apply_padding`` dataset_reader.py:175-195), label blocks padded to
 ``MAX_OBJS`` slots with mask 0, empty slots carrying the image K.
 
-Three modes, as in the JAX package:
+The modes, as in the JAX package:
 - host: decode, ``transforms.train_augmentation``/``test_transform``,
   pad; uint8 out when ``TPU.NORMALIZE_ON_DEVICE`` (the default);
 - raw (``TPU.DEVICE_WARP``, ``_getitem_raw``): the uint8 source on a
@@ -24,9 +24,17 @@ Three modes, as in the JAX package:
   the border colour; the step warps on the device (``ops/device_warp.py``);
 - device cache (``TPU.DEVICE_DATA_CACHE`` with ``DEVICE_WARP``): as raw,
   with ``image_idx`` in place of the pixels (``canvas_array`` is copied
-  to the device once).
-Mosaic (``IS_MOSAIC``) and ``DATASET.FAST_PREPROC`` are not ported yet
-and raise (ROADMAP.md, queue A).
+  to the device once);
+- fused (``DATASET.FAST_PREPROC`` True or "auto", without mosaic):
+  ``data/fast_preproc.py::FusedPreproc``, one host C++ resample to a
+  normalised float32 frame (the port always builds its library, so "auto"
+  takes it too, as the JAX reader's does once its library is built, and a
+  failed build raises); on an H100's host it is slower than the host mode
+  (``PERF.md`` section 5);
+- mosaic (``IS_MOSAIC``, training only): the sample's frame and 3 drawn
+  from ``rng`` (``rtm3d_tpu/data/kitti.py:442-458``), each through the host
+  augmentation, composed 2x2 and warped by ``transforms.RandomAffine2D``;
+  it turns the device warp off, and the calib is the first tile's.
 """
 
 from __future__ import annotations
@@ -38,8 +46,8 @@ import numpy as np
 
 from rtm3d_tpu_torch.config import Config
 from rtm3d_tpu_torch.data import image_io
-from rtm3d_tpu_torch.data.fast_preproc import transform_labels_affine
-from rtm3d_tpu_torch.data.transforms import Compose, test_transform, train_augmentation
+from rtm3d_tpu_torch.data.fast_preproc import FusedPreproc, transform_labels_affine
+from rtm3d_tpu_torch.data.transforms import Compose, RandomAffine2D, test_transform, train_augmentation
 from rtm3d_tpu_torch.geometry.projection import name_2_label
 from rtm3d_tpu_torch.ops.device_warp import warp_params_for
 
@@ -86,14 +94,6 @@ class KITTIDataset:
         is_training: bool = True,
         split: str = "train",
     ):
-        if cfg.IS_MOSAIC:
-            raise NotImplementedError(
-                "IS_MOSAIC (mosaic composition, RandomAffine2D) is not ported yet: ROADMAP.md, queue A"
-            )
-        if cfg.DATASET.get("FAST_PREPROC", False):
-            raise NotImplementedError(
-                "DATASET.FAST_PREPROC (the fused native resample) is not ported yet: ROADMAP.md, queue A"
-            )
         self._root = root
         self._cfg = cfg
         self._augment = augment
@@ -136,7 +136,13 @@ class KITTIDataset:
             ns_max = np.ceil(ns.max(axis=0) / 32).astype(np.int64) * 32
             self.img_size = [int(ns_max[0]), int(ns_max[1])]
 
-        self.device_warp = bool(cfg.TPU.get("DEVICE_WARP", False))
+        # the fused host resample (data/fast_preproc.py)
+        self._fast = None
+        if cfg.DATASET.get("FAST_PREPROC", False) in (True, "auto") and not cfg.IS_MOSAIC:
+            self._fast = FusedPreproc(out_size=tuple(self.img_size), resize_max_side=self.resize_max_side,
+                                      mean=cfg.DATASET.MEAN, std=cfg.DATASET.STD, train=is_training)
+
+        self.device_warp = bool(cfg.TPU.get("DEVICE_WARP", False)) and not cfg.IS_MOSAIC
         self.device_cache = bool(cfg.TPU.get("DEVICE_DATA_CACHE", False)) and self.device_warp
         if self.device_warp:
             self._src_hw = (
@@ -297,6 +303,33 @@ class KITTIDataset:
             "noise_mask": noise_mask.astype(bool),
         }
 
+    def _apply_mosaic(self, images, labels_list, rng):
+        """4-tile mosaic composition + ``RandomAffine2D`` (reference
+        dataset_reader.py:140-173; ``rtm3d_tpu/data/kitti.py:335-373``)."""
+        sw, sh = self.img_size
+        c = images[0].shape[2]
+        mean_rgb = np.mean([image_io.mean_color(im) for im in images], axis=0)
+        img4 = np.full((sh * 2, sw * 2, c), mean_rgb, dtype=np.uint8)
+        offsets = [(0, 0), (sw, 0), (0, sh), (sw, sh)]
+        merged = None
+        for (ox, oy), im, lab in zip(offsets, images, labels_list):
+            h, w = im.shape[:2]
+            pad_w = int(sw - w) // 2
+            pad_h = int(sh - h) // 2
+            y0, x0 = pad_h + oy, pad_w + ox
+            img4[y0 : y0 + h, x0 : x0 + w] = im
+            lab["bbox"][:, 0::2] = np.clip(lab["bbox"][:, 0::2] + x0, 0, 2 * sw)
+            lab["bbox"][:, 1::2] = np.clip(lab["bbox"][:, 1::2] + y0, 0, 2 * sh)
+            lab["K"][:, 2] += x0
+            lab["K"][:, 5] += y0
+            if merged is None:
+                merged = {k: v.copy() for k, v in lab.items()}
+            else:
+                merged = {k: np.concatenate([merged[k], lab[k]], axis=0) for k in merged}
+        d = self._cfg.DATASET
+        return RandomAffine2D()(img4, merged, rng=rng, degrees=d.aug_degrees, translate=d.aug_translate,
+                                scale=d.aug_scale, shear=d.aug_shear, border=(-sh // 2, -sw // 2))
+
     def _apply_padding(self, img, labels):
         """Mean-colour pad to (W, H) with bbox/K shift (dataset_reader.py:175-195)."""
         sw, sh = self.img_size
@@ -356,14 +389,42 @@ class KITTIDataset:
         # per-batch streams
         if rng is None:
             rng = np.random.RandomState((977 + index * 15486277) % (2**31 - 1))
-        if self.device_warp:
+        if self._cfg.IS_MOSAIC and self.is_training:
+            # 3 more tiles drawn first (dataset_reader.py:83-85), then each
+            # tile's augmentation, then the homography, from one stream
+            indices = [index] + [int(rng.randint(0, len(self._labels))) for _ in range(3)]
+            images, labs = [], []
+            for i in indices:
+                im = self._imread(self._image_files[i])
+                lab = self._raw_labels(i)
+                if self._augment is not None:
+                    im, lab = self._augment(im, lab, rng=rng)
+                images.append(im)
+                labs.append(lab)
+            img, labels = self._apply_mosaic(images, labs, rng)
+            # 4 cameras in one frame: the first tile's raw calib stands for all
+            calib = self._K[index].astype(np.float32).copy()
+        elif self.device_warp:
             return self._getitem_raw(index, rng)
-        img = self._imread(self._image_files[index])
-        labels = self._push_calib(self._raw_labels(index), index)
-        if self._augment is not None:
-            img, labels = self._augment(img, labels, rng=rng)
-        img, labels = self._apply_padding(img, labels)
-        labels, calib = self._pop_calib(labels)
+        elif self._fast is not None:
+            img = self._imread(self._image_files[index])
+            labels = self._push_calib(self._raw_labels(index), index)
+            img, labels = self._fast(img, labels, rng)
+            labels, calib = self._pop_calib(labels)
+            return {
+                "image": img,  # normalised float32 already
+                "labels": self._pad_objs(labels, calib=calib),
+                "calib": calib,
+                "path": self._path(index),
+                "shape": self._shapes[index],
+            }
+        else:
+            img = self._imread(self._image_files[index])
+            labels = self._push_calib(self._raw_labels(index), index)
+            if self._augment is not None:
+                img, labels = self._augment(img, labels, rng=rng)
+            img, labels = self._apply_padding(img, labels)
+            labels, calib = self._pop_calib(labels)
         if self.normalize_on_device:
             img = img.astype(np.uint8)  # raw bytes; the step normalises
         else:

@@ -1,6 +1,6 @@
 """Host-side numpy augmentation pipeline (runs in the loader's workers).
 
-Port of ``rtm3d_tpu/data/transforms.py:32-175,253-304``; reference
+Port of ``rtm3d_tpu/data/transforms.py:32-304``; reference
 semantics: preprocess/transforms.py + preprocess/data_preprocess.py. Each
 transform is ``(img, labels, rng, **params) -> (img, labels)`` over a
 plain dict of numpy arrays:
@@ -16,8 +16,8 @@ The draws come from the caller's ``np.random.RandomState`` in the JAX
 package's order, each only where the JAX transform makes it (a
 probability draw first, then the parameters when it passes), so one
 shared per-batch stream gives the same samples in both packages. Pixels
-go through ``data/image_io.py`` (cv2). The mosaic homography
-``RandomAffine2D`` (``:177-250``) is not ported (ROADMAP.md, queue A).
+go through ``data/image_io.py`` (cv2), the mosaic homography
+``RandomAffine2D`` (``:177-250``) included.
 """
 
 from __future__ import annotations
@@ -169,6 +169,60 @@ class RandomMirror:
                     a = labels[key]
                     labels[key] = np.where(a >= 0, -a + np.pi, -a - np.pi)
                 labels["loc"][:, 0] *= -1
+        return img, labels
+
+
+class RandomAffine2D:
+    """Rotation, translation, shear and scale for the mosaic composition
+    (reference transforms.py:372-445). Boxes are refit from their 4 warped
+    corners; degenerate results (tiny, over-cropped, extreme aspect, center
+    outside) are masked out by the reference's criteria. Like the
+    reference, K is not updated: rotation and shear are no intrinsics, so
+    mosaic is consistent for the 2D targets only."""
+
+    def __call__(self, img, labels=None, rng=None, degrees=0.0, translate=0.0, scale=0.5, shear=0.0, border=None,
+                 **kw):
+        h, w = img.shape[:2]
+        if border is None:
+            border = (-h // 4, -w // 4)
+        height = h + border[0] * 2
+        width = w + border[1] * 2
+
+        R = np.eye(3)
+        a = rng.uniform(-degrees, degrees)
+        s = rng.uniform(1 - scale, 1 - scale / 2)
+        R[:2] = image_io.rotation_matrix(a, (w / 2, h / 2), s)
+        T = np.eye(3)
+        T[0, 2] = rng.uniform(-translate, translate) * w + border[1]
+        T[1, 2] = rng.uniform(-translate, translate) * h + border[0]
+        S = np.eye(3)
+        S[0, 1] = np.tan(rng.uniform(-shear, shear) * np.pi / 180)
+        S[1, 0] = np.tan(rng.uniform(-shear, shear) * np.pi / 180)
+        M = S @ T @ R  # the reference's order (transforms.py:405)
+
+        img = image_io.warp_affine_linear(img, M[:2], (width, height), (114, 114, 114))
+        if labels is not None and "mask" in labels:
+            bboxes = labels["bbox"].copy()
+            n = len(bboxes)
+            if n:
+                xy = np.ones((n * 4, 3))
+                xy[:, :2] = bboxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n * 4, 2)
+                xy = (xy @ M.T)[:, :2].reshape(n, 8)
+                x = xy[:, [0, 2, 4, 6]]
+                y = xy[:, [1, 3, 5, 7]]
+                new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], axis=1)
+                bw = new[:, 2] - new[:, 0]
+                bh = new[:, 3] - new[:, 1]
+                area0 = (bboxes[:, 2] - bboxes[:, 0]) * (bboxes[:, 3] - bboxes[:, 1])
+                ar = np.maximum(bw / (bh + 1e-16), bh / (bw + 1e-16))
+                keep = (bw > 2) & (bh > 2) & (bw * bh / (area0 * s + 1e-16) > 0.2) & (ar < 20)
+                labels["mask"] = labels["mask"] & keep
+                bboxes[keep] = new[keep]
+                cx = bboxes[:, 0::2].sum(axis=1) * 0.5
+                cy = bboxes[:, 1::2].sum(axis=1) * 0.5
+                out = (cx < 0) | (cx >= width) | (cy < 0) | (cy >= height)
+                labels["mask"] = labels["mask"] & ~out
+                labels["bbox"] = bboxes
         return img, labels
 
 

@@ -314,7 +314,13 @@ def make_detect_step(
     pass. Decode and the 3D solver run in fp32 on the upcast logits. Inputs
     on another device are copied to ``device``. Returns fixed (B, TOPK)
     tensors; ``accepted`` combines the score threshold with the solver's
-    residual acceptance (model_utils.py:298).
+    residual acceptance (model_utils.py:298); with ``with_3d`` False (the
+    int8 default) ``accepted`` is ``valid`` and no 3D keys are returned.
+
+    An int8 network (``nn/quant.py::quantize_model``) is served the same
+    way: its ``QuantConv`` modules quantize the copy's weights after the
+    cast, so under bf16 the weight scales come from the bf16 kernels, as
+    the JAX step casts its variables before the apply (step.py:285-293).
     """
     device = resolve_device(device)
     dtype = compute_dtype(cfg)

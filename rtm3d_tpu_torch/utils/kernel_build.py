@@ -8,9 +8,11 @@ the flags, so an edited source builds anew; a finished library is reused.
 ``build`` starts one ``nvcc`` per source, all at once, and waits for all.
 ``nvcc`` runs only when a kernel is first needed, never at import.
 
-Host C++ (``csrc/<name>.cc``: the AP evaluator's overlap library, no CUDA)
-takes its own route, ``build_host``/``load_host``: ``c++ -O3 -std=c++17
--shared -fPIC`` into the same directory, hashed the same way. It is kept
+Host C++ (``csrc/<name>.cc``: the AP evaluator's overlap library and the
+reader's fused warp, no CUDA) takes its own route,
+``build_host``/``load_host``: ``c++ -O3 -std=c++17 -shared -fPIC -pthread``
+into the same directory, hashed the same way (no ``-march=native``: a
+library in ``_build/`` may be copied to another machine with the tree). It is kept
 apart from the ``.cu`` sources: ``kernel_names`` and ``build`` see only
 CUDA. Either build raises when the compiler is missing or fails.
 """
@@ -34,7 +36,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the log
 )
-HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
 def kernel_names() -> list:

@@ -11,6 +11,7 @@ imports another version of ``rtm3d_tpu_torch`` (``chip_smoke.py
 from __future__ import annotations
 
 import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -24,6 +25,8 @@ K_KITTI = np.array([[721.5, 0, 609.6], [0, 721.5, 172.9], [0, 0, 1.0]], np.float
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
+PEAK_INT8_OPS = 1979e12  # dense, tensor cores
+PROFILER_SESSIONS = 3  # kernel_device_ms: profiler sessions before it times by a CUDA graph
 
 
 def nvidia_smi() -> str:
@@ -48,21 +51,78 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, reps: int, kernel: str) -> float:
+def kernel_device_ms(fn, reps: int, kernel: str) -> tuple[float, str]:
     """Mean device milliseconds of the kernels whose name holds ``kernel``
-    over ``reps`` calls of ``fn()``, from torch.profiler."""
+    over ``reps`` calls of ``fn()``, and what timed them: ``"profiler"``
+    (torch.profiler, the kernels alone) or ``"graph"``.
+
+    Now and then a profiler session records no device activity at all
+    (seen on an H100 in 2 of 8 long runs, each time in a process that had
+    run many sessions and forked loader workers): such a session is
+    reported on stderr and the measurement is taken again, in up to
+    PROFILER_SESSIONS sessions; then the time is ``graph_device_ms``'s,
+    which includes the gaps between launches, and the second value says
+    so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for session in range(1, PROFILER_SESSIONS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        rows = [e for e in events if kernel in e.key]
+        if rows:
+            return sum(e.self_device_time_total for e in rows) / sum(e.count for e in rows) / 1e3, "profiler"
+        print(f"kernel_device_ms: profiler session {session} of {PROFILER_SESSIONS} saw no {kernel} launch "
+              f"({len(events)} device rows: {[e.key[:60] for e in events[:5]]})", file=sys.stderr, flush=True)
+    return graph_device_ms(fn, reps), "graph"
+
+
+def graph_device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls captured in
+    one CUDA graph and replayed between CUDA events: no host work between
+    the launches, so it measures the kernels and the gaps between them
+    (``fn`` must launch on the current stream and not synchronise)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the default stream, as capture wants
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel in e.key and e.self_device_time_total > 0]
-    if not rows:
-        raise AssertionError(f"the profiler saw no {kernel} launch")
-    return sum(e.self_device_time_total for e in rows) / sum(e.count for e in rows) / 1e3
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def int_mm_conv(xq: torch.Tensor, w: torch.Tensor, stride: int, padding: int, dilation: int) -> torch.Tensor:
+    """The library yardstick of the int8 convolution: im2col by ``F.unfold``
+    (on float16 copies of the int8 values: unfold takes no integer type) and
+    cuBLASLt's int8 GEMM ``torch._int_mm``; the int32 sums, (N*Ho*Wo, Cout).
+    xq (N, H, W, C) int8, w (Cout, Cin <= C, KH, KW) int8 (channels past Cin
+    are zero in xq). ``_int_mm`` wants K and N multiples of 8 and M > 16:
+    both are zero-padded."""
+    c = xq.shape[-1]
+    cout, cin, kh, kw = w.shape
+    w = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, c - cin))
+    cols = torch.nn.functional.unfold(xq.permute(0, 3, 1, 2).half(), (kh, kw), dilation=dilation, padding=padding,
+                                      stride=stride)  # (N, C*KH*KW, L)
+    k = cols.shape[1]
+    kp, npad = -(-k // 8) * 8, -(-cout // 8) * 8
+    a = torch.nn.functional.pad(cols.transpose(1, 2).reshape(-1, k), (0, kp - k)).to(torch.int8)
+    b = torch.zeros((npad, kp), dtype=torch.int8, device=w.device)
+    b[:cout, :k] = w.reshape(cout, k)
+    return torch._int_mm(a, b.t())[:, :cout]
 
 
 def synthetic_lanes(rng, n_det: int, dim_ref):

@@ -154,13 +154,6 @@ def test_samples_match_jax(kitti_tree, mode):
         assert noise_slots > 0
 
 
-@pytest.mark.parametrize("overrides", [["IS_MOSAIC", "True"], ["DATASET.FAST_PREPROC", "True"]],
-                         ids=["mosaic", "fast_preproc"])
-def test_unported_modes_raise(kitti_tree, overrides):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kitti.create_dataset(kitti_tree, configs(overrides)[1])
-
-
 def test_image_io_is_the_only_cv2_user():
     users = []
     for path in sorted((REPO / "rtm3d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:

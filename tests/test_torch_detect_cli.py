@@ -114,11 +114,3 @@ def test_save_vis_writes_the_three_drawings(runs):
         assert img.std() > 0 and bev.std() > 0
 
 
-# --from-export is served now (tests/test_torch_export.py); the third case
-# is another int8 option
-@pytest.mark.parametrize("flag", [["--int8"], ["--calib-method", "mse"], ["--int8-3d-anyway"]])
-def test_unported_options_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A: int8 PTQ"):
-        detect.main(["--model-config", str(REPO / "configs" / MODES["host"]), "--device", "cpu"] + flag)
-    with pytest.raises(NotImplementedError, match="queue A: int8 PTQ"):
-        evaluate.main(["--model-config", str(REPO / "configs" / MODES["host"]), "--skip-detect", "--int8"])
