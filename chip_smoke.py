@@ -159,6 +159,28 @@ phases of one JSON line each; any failure exits non-zero:
            over two train steps and two eager detect calls
            (resnet18_train_profile, resnet18_detect_profile; the tables to
            chip_smoke_out/).
+  ddp_fp32 data parallelism (rtm3d_tpu_torch/parallel/dist.py): two rank
+           processes of this script sharing the card over gloo (NCCL refuses
+           two ranks on one device), DLA-34 384x128, global batch 4, fp32
+           with TF32 off, lr DDP_FP32_LR, 3 steps, against one rank on the
+           same batches in this process (DDP_GATE: each step's loss, step
+           1's gradient; the parameters and BN statistics after 3 steps);
+           the ranks' parameters hash equal after each step; a witness with
+           the BatchNorm sync turned off must leave the gates;
+  ddp_full two gloo ranks sharing the card at the train phase's full width
+           (1280x384 bf16, EMA, MAX_OBJS 64), global batch 32, 3 warm-up and
+           5 timed steps: finite losses equal on both ranks, one splat launch
+           a rank a step, the splat against its plain version; per-rank ms a
+           step, the gradient and a BN-sized all-reduce timed alone, peak
+           memory a process (not a scaling figure);
+  ddp_cli  python -m torch.distributed.run --nproc-per-node 1 (NCCL, world
+           size 1): cli.train --multihost on the data phase's tree (the TPU
+           config, 1 epoch; the data phase's gates, its step spans beside the
+           data phase's), and cli.detect on detect_cli_device's weights,
+           whose result files must equal that run's.
+  The device line also carries a probe: NCCL's version, whether gloo takes
+  CUDA tensors in all_reduce and broadcast, whether tensorstore and orbax
+  import.
 Then the seconds of each phase, the kernels line, the nvidia-smi line and,
 last, {"ok": true, ...}. Needs one CUDA device; without one it exits
 non-zero and prints no result.
@@ -1633,7 +1655,7 @@ def int8_cli_phase(lm, int8, quant, nn_model, load_config, cli_detect, cli_evalu
     emit("int8_calls", **rec)
     del steps, model, frames
     torch.cuda.empty_cache()
-    os.remove(weights)
+    # the weights stay for the ddp_cli phase, which main removes after it
     return {"records": recs, "launches": launches}
 
 
@@ -1701,6 +1723,429 @@ def host_variants_phase(splat, load_config, cli_train, tree: str, cv2_rec: dict)
         shutil.rmtree(weights, ignore_errors=True)
         torch.cuda.empty_cache()
     return recs
+
+
+# -- data parallelism (parallel/dist.py): two gloo ranks sharing the card, and torchrun at world size 1 --
+DDP_WORLD = 2
+DDP_FP32_HW, DDP_FP32_BATCH, DDP_FP32_STEPS = (384, 128), 4, 3  # ddp_fp32: train_fp32's frame, global batch 4
+DDP_FULL_WARMUP, DDP_FULL_TIMED = 3, 5  # ddp_full: the train phase's config at global batch TRAIN_BATCH
+DDP_TIMEOUT_S = 600
+# ddp_fp32: two ranks against one on the card, fp32 with TF32 off. The loss of
+# each step within 1e-4 relative and step 1's gradient within train_fp32's
+# gates (this network's float32 noise). After 3 steps the parameters within
+# 2 x the summed learning rates (each Adamax update moves a coordinate by at
+# most about lr, so a sign that float32 noise flips costs 2 lr) and each BN
+# running statistic within DDP_BN_REL of its tensor's largest value (an
+# H100 measured 8.5e-5, a twelfth of it). The
+# learning rate is DDP_FP32_LR with no warm-up: at the default schedule's
+# first rates (1e-5) the flipped signs move the third step's loss by 2e-4
+# (measured on the CPU at 64x64).
+DDP_GATE = {"loss_rel": 1e-4, "grad_l2_total": 5e-2, "grad_l2_tensor": 1e-1}
+DDP_BN_REL = 1e-3
+DDP_FP32_LR = 1e-6
+
+
+def dist_probe() -> dict:
+    """What the card's machine offers data parallelism: NCCL's version,
+    whether gloo takes CUDA tensors in all_reduce and broadcast (a gloo
+    group of one rank), and whether tensorstore and orbax import (the JAX
+    package's checkpoint directories need them)."""
+    import importlib
+
+    import torch.distributed as tdist
+
+    out = {"nccl": ".".join(map(str, torch.cuda.nccl.version()))
+           if isinstance(torch.cuda.nccl.version(), tuple) else str(torch.cuda.nccl.version())}
+    store = os.path.abspath(os.path.join("chip_smoke_out", "ddp", "probe_store"))
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    tdist.init_process_group("gloo", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        for name, op in (("all_reduce", tdist.all_reduce), ("broadcast", lambda t: tdist.broadcast(t, 0))):
+            try:
+                t = torch.full((4,), 3.0, device="cuda")
+                op(t)
+                torch.cuda.synchronize()
+                out[f"gloo_cuda_{name}"] = bool(torch.equal(t.cpu(), torch.full((4,), 3.0)))
+            except RuntimeError as e:
+                out[f"gloo_cuda_{name}"] = f"refused: {str(e)[:160]}"
+    finally:
+        tdist.destroy_process_group()
+    for mod in ("tensorstore", "orbax.checkpoint"):
+        try:
+            m = importlib.import_module(mod)
+            out[mod] = getattr(m, "__version__", "imports")
+        except ImportError as e:
+            out[mod] = f"does not import: {str(e)[:120]}"
+    return out
+
+
+def ddp_launch(cmd: list, world: int, tag: str, env_extra=None) -> None:
+    """``cmd`` once per rank (``{rank}`` in it replaced), outputs to
+    chip_smoke_out/ddp/<tag>.rank<r>.log, waited for with a timeout; every
+    process is ended before it returns, and a rank that failed raises with
+    its log's end."""
+    logdir = os.path.abspath(os.path.join("chip_smoke_out", "ddp"))
+    os.makedirs(logdir, exist_ok=True)
+    procs = []
+    for r in range(world):
+        path = os.path.join(logdir, f"{tag}.rank{r}.log")
+        log = open(path, "w")
+        procs.append((subprocess.Popen([c.replace("{rank}", str(r)) for c in cmd], stdout=log,
+                                       stderr=subprocess.STDOUT, env=dict(os.environ, **(env_extra or {}))),
+                      log, path))
+    try:
+        for p, _, _ in procs:
+            p.wait(timeout=DDP_TIMEOUT_S)
+    finally:
+        for p, log, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+            log.close()
+    for r, (p, _, path) in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"{tag}: rank {r} exited {p.returncode}: {open(path).read()[-3000:]}")
+
+
+def fp32_ddp_config():
+    from rtm3d_tpu_torch import default_config
+
+    cfg = default_config()
+    cfg.INPUT_SIZE = DDP_FP32_HW
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.BATCH_SIZE = DDP_FP32_BATCH
+    cfg.SOLVER.BASE_LR, cfg.SOLVER.WARMUP_ITERS = DDP_FP32_LR, 0
+    return cfg
+
+
+def fp32_ddp_batches(rows: slice) -> list:
+    """ddp_fp32's global batches (seeded), ``rows`` of each."""
+    rng = np.random.RandomState(6)
+    w, h = DDP_FP32_HW
+    out = []
+    for _ in range(DDP_FP32_STEPS):
+        img = (rng.rand(DDP_FP32_BATCH, h, w, 3) * 255).astype(np.uint8)
+        labels = synthetic_labels(rng, DDP_FP32_BATCH, TRAIN_OBJS, scale=0.3)
+        out.append({"image": torch.from_numpy(img[rows]), "labels": {k: v[rows] for k, v in labels.items()}})
+    return out
+
+
+def fp32_ddp_steps(rows: slice, steps: int = DDP_FP32_STEPS) -> dict:
+    """``steps`` train steps of ddp_fp32 on ``rows`` of each global batch,
+    from create_model's seed-0 weights, on the card: each step's loss
+    items and parameter hash, step 1's gradients, and the parameters and
+    BN running statistics after the last."""
+    import hashlib
+
+    from rtm3d_tpu_torch.nn.model import create_model
+    from rtm3d_tpu_torch.train.state import TrainState
+    from rtm3d_tpu_torch.train.step import make_train_step
+
+    cfg = fp32_ddp_config()
+    state = TrainState.create(create_model(cfg, torch.Generator().manual_seed(0)), cfg, device="cuda")
+    step = make_train_step(cfg, device="cuda")
+    out = {"loss_items": [], "digests": [], "lrs": []}
+    for i, b in enumerate(fp32_ddp_batches(rows)[:steps]):
+        out["lrs"].append(state.schedule(state.updates))
+        state, m = step(state, b)
+        out["loss_items"].append(m["loss_items"].cpu())
+        h = hashlib.sha256()
+        for p in state.model.parameters():
+            h.update(p.detach().cpu().numpy().tobytes())
+        out["digests"].append(h.hexdigest())
+        if i == 0:
+            out["grads"] = {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()}
+    out["params"] = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
+    out["buffers"] = {k: b.detach().cpu() for k, b in state.model.named_buffers() if k.endswith(("_mean", "_var"))}
+    return out
+
+
+def ddp_rank_init(workdir: str, rank: int):
+    from rtm3d_tpu_torch.parallel import dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # two ranks on one card: NCCL refuses that, so gloo (on CUDA tensors)
+    return dist, dist.init_distributed("cuda:0", backend="gloo", init_method=f"file://{workdir}/store", rank=rank,
+                                       world_size=DDP_WORLD, timeout=300)
+
+
+def ddp_fp32_worker(workdir: str, rank: int) -> None:
+    """One rank of ddp_fp32: the steps on this rank's rows, then the
+    per-rank-BN witness (the sync turned off) for one step."""
+    from rtm3d_tpu_torch.nn import layers
+    from rtm3d_tpu_torch.ops import splat
+
+    dist, _ = ddp_rank_init(workdir, rank)
+    try:
+        rows = slice(rank * DDP_FP32_BATCH // DDP_WORLD, (rank + 1) * DDP_FP32_BATCH // DDP_WORLD)
+        splat.splat_heatmap.launches = 0
+        run = fp32_ddp_steps(rows)
+        torch.cuda.synchronize()
+        run["splat_launches"] = splat.splat_heatmap.launches
+        saved = layers.world_size
+        layers.world_size = lambda: 1
+        try:
+            witness = fp32_ddp_steps(rows, 1)
+        finally:
+            layers.world_size = saved
+        keep = run if rank == 0 else {k: run[k] for k in ("loss_items", "digests", "splat_launches")}
+        keep["witness"] = {k: witness[k] for k in ("loss_items", "grads")} if rank == 0 else None
+        torch.save(keep, os.path.join(workdir, f"fp32_rank{rank}.pt"))
+    finally:
+        dist.shutdown()
+
+
+def ddp_fp32_phase() -> dict:
+    """Two gloo ranks on the card against one rank on the same global
+    batches (see DDP_GATE); the ranks' parameters hash equal after each
+    step; the per-rank-BN witness must leave the gates."""
+    workdir = os.path.abspath(os.path.join("chip_smoke_out", "ddp", "fp32"))
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    ddp_launch([sys.executable, os.path.abspath(__file__), "--ddp-worker", "fp32", workdir, "{rank}"], DDP_WORLD,
+               "fp32")
+    ranks_s = time.perf_counter() - t0
+    one = fp32_ddp_steps(slice(None))
+    r0, r1 = (torch.load(os.path.join(workdir, f"fp32_rank{r}.pt"), weights_only=False) for r in range(DDP_WORLD))
+
+    def grads_apart(got):
+        want = {k: g.double() for k, g in one["grads"].items()}
+        per = {k: ((got[k].double() - g).norm() / g.norm()).item() for k, g in want.items() if g.norm() > 0}
+        flat = lambda d: torch.cat([v.double().flatten() for v in d.values()])
+        return ((flat(got) - flat(want)).norm() / flat(want).norm()).item(), max(per.values())
+
+    def loss_rel(got):
+        return max(((a - b).abs() / b.abs().clamp(min=1e-12)).max().item() for a, b in zip(got, one["loss_items"]))
+
+    total, worst = grads_apart(r0["grads"])
+    param_diff = max((r0["params"][k] - v).abs().max().item() for k, v in one["params"].items())
+    bn_diff = max(((r0["buffers"][k] - v).abs().max() / v.abs().max().clamp(min=1e-12)).item()
+                  for k, v in one["buffers"].items())
+    w_total, w_worst = grads_apart(r0["witness"]["grads"])
+    w_loss = loss_rel(r0["witness"]["loss_items"])
+    param_bound = 2.01 * sum(one["lrs"])
+    rec = {"ranks": DDP_WORLD, "backend": "gloo, both ranks on cuda:0", "input": "x".join(map(str, DDP_FP32_HW)),
+           "global_batch": DDP_FP32_BATCH, "steps": DDP_FP32_STEPS, "dtype": "float32, TF32 off", "lr": DDP_FP32_LR,
+           "loss_rel": max(loss_rel(r0["loss_items"]), loss_rel(r1["loss_items"])),
+           "grad_l2_rel_total": total, "grad_l2_rel_worst": worst, "param_max_abs_diff": param_diff,
+           "param_bound": param_bound, "bn_max_rel_diff": bn_diff, "bn_rel_gate": DDP_BN_REL,
+           "ranks_hash_equal": r0["digests"] == r1["digests"], "gate": DDP_GATE,
+           "splat_launches": [r0["splat_launches"], r1["splat_launches"]],
+           "witness_per_rank_bn": {"loss_rel": w_loss, "grad_l2_rel_total": w_total, "grad_l2_rel_worst": w_worst},
+           "ranks_wall_s": ranks_s}
+    emit("ddp_fp32", **rec)
+    if (rec["loss_rel"] > DDP_GATE["loss_rel"] or total > DDP_GATE["grad_l2_total"] or worst > DDP_GATE["grad_l2_tensor"]
+            or param_diff > param_bound or bn_diff > DDP_BN_REL or not rec["ranks_hash_equal"]):
+        raise AssertionError(f"ddp_fp32: two ranks disagree with one, or with each other: {rec}")
+    if not (w_loss > DDP_GATE["loss_rel"] and w_total > DDP_GATE["grad_l2_total"]):
+        raise AssertionError(f"ddp_fp32: the per-rank-BN witness stays within the gates: {rec}")
+    if rec["splat_launches"] != [DDP_FP32_STEPS] * DDP_WORLD:
+        raise AssertionError(f"ddp_fp32: expected one splat launch a rank a step: {rec}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"splat_launches": sum(rec["splat_launches"]), "record": rec}
+
+
+def ddp_full_worker(workdir: str, rank: int) -> None:
+    """One rank of ddp_full: the train phase's configuration, half of each
+    global batch, DDP_FULL_WARMUP then DDP_FULL_TIMED steps (CUDA events);
+    then the splat on the first batch against its plain version, and the
+    gradient all-reduce and a BN-sized all-reduce timed alone."""
+    from rtm3d_tpu_torch import load_config
+    from rtm3d_tpu_torch.data.targets import heatmap_inputs
+    from rtm3d_tpu_torch.nn.layers import BatchNorm
+    from rtm3d_tpu_torch.nn.model import create_model
+    from rtm3d_tpu_torch.ops import splat
+    from rtm3d_tpu_torch.train.state import TrainState
+    from rtm3d_tpu_torch.train.step import make_train_step
+
+    dist, dev = ddp_rank_init(workdir, rank)
+    try:
+        cfg = load_config(os.path.join(CONFIGS, "rtm3d_dla34_kitti_tpu.yaml"))
+        cfg.INPUT_SIZE = (W, H)
+        cfg.BATCH_SIZE, cfg.DATASET.MAX_OBJS = TRAIN_BATCH, TRAIN_OBJS
+        local = dist.local_batch_size(TRAIN_BATCH)
+        gen = torch.Generator(device="cuda").manual_seed(40 + rank)
+        rng = np.random.RandomState(40 + rank)
+        batches = [{"image": torch.randint(0, 256, (local, H, W, 3), dtype=torch.uint8, device="cuda", generator=gen),
+                    "labels": {k: v.cuda() for k, v in synthetic_labels(rng, local, TRAIN_OBJS).items()}}
+                   for _ in range(DDP_FULL_WARMUP + DDP_FULL_TIMED)]
+        model = create_model(cfg, torch.Generator().manual_seed(0))
+        state = TrainState.create(model, cfg, device="cuda")
+        step = make_train_step(cfg, device="cuda")
+        dist.warmup_collectives(dev)
+        for b in batches[:DDP_FULL_WARMUP]:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        splat.splat_heatmap.launches = 0
+        events, losses = [], []
+        for b in batches[DDP_FULL_WARMUP:]:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            state, m = step(state, b)
+            ev[1].record()
+            events.append(ev)
+            losses.append(m["loss_items"])
+        torch.cuda.synchronize()
+        launches = splat.splat_heatmap.launches
+        step_ms = [a.elapsed_time(z) for a, z in events]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        bn_calls = sum(isinstance(mod, BatchNorm) for mod in state.model.modules())
+        # the gradient all-reduce (one flat fp32 buffer) and one BN-sized
+        # all-reduce, each timed alone with the ranks aligned
+        flat = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()])
+        small = torch.zeros(2 * 256 + 1, dtype=torch.float64, device="cuda")
+        timed = {}
+        for name, t, reps in (("grad_all_reduce_ms", flat, 5), ("bn_all_reduce_ms", small, 50)):
+            dist.sync_processes(name)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                dist.all_reduce_sum(t)
+            torch.cuda.synchronize()
+            timed[name] = (time.perf_counter() - t0) / reps * 1e3
+        labels = batches[0]["labels"]
+        feat_hw = (H // 4, W // 4)
+        inputs = heatmap_inputs(labels, 4.0, cfg.DATASET.GAUSSIAN_GEN_TYPE, cfg.DATASET.BBOX_AREA_MAX,
+                                cfg.DATASET.BBOX_AREA_MIN)
+        got = splat.splat_heatmap(*inputs, feat_hw, len(cfg.DATASET.OBJs))
+        ref = splat.splat_heatmap_reference(*inputs, feat_hw, len(cfg.DATASET.OBJs))
+        rec = {"rank": rank, "local_batch": local, "step_ms": step_ms, "peak_mem_gb": peak_gb,
+               "splat_launches": launches, "losses": torch.stack(losses).cpu().tolist(),
+               "splat_max_abs_err": (got - ref).abs().max().item(),
+               "splat_ones_equal": bool(torch.equal(got == 1.0, ref == 1.0)), "bn_modules": bn_calls,
+               "grad_elements": flat.numel(), **timed}
+        with open(os.path.join(workdir, f"full_rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.shutdown()
+
+
+def ddp_full_phase(smi: str) -> dict:
+    """Two gloo ranks sharing the card at full width (see ddp_full_worker):
+    finite losses equal on both ranks, one splat launch a rank a step, the
+    splat against its plain version; per-rank step ms, all-reduce ms, peak
+    memory a process. Two ranks on one card over gloo: not a scaling figure."""
+    workdir = os.path.abspath(os.path.join("chip_smoke_out", "ddp", "full"))
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    ddp_launch([sys.executable, os.path.abspath(__file__), "--ddp-worker", "full", workdir, "{rank}"], DDP_WORLD,
+               "full")
+    ranks = [json.load(open(os.path.join(workdir, f"full_rank{r}.json"))) for r in range(DDP_WORLD)]
+    losses = [np.asarray(r["losses"]) for r in ranks]
+    rec = {"label": "two ranks sharing one card, gloo: not a scaling figure", "card": smi,
+           "config": "rtm3d_dla34_kitti_tpu.yaml", "input": f"{W}x{H}", "global_batch": TRAIN_BATCH,
+           "dtype": "bfloat16 autocast", "ema": True, "max_objs": TRAIN_OBJS, "timed_steps": DDP_FULL_TIMED,
+           "per_rank": [{k: r[k] for k in ("rank", "local_batch", "step_ms", "peak_mem_gb", "splat_launches",
+                                           "grad_all_reduce_ms", "bn_all_reduce_ms", "splat_max_abs_err")}
+                        for r in ranks],
+           "ms_per_step": float(np.mean([np.mean(r["step_ms"]) for r in ranks])),
+           "images_per_s": TRAIN_BATCH / (float(np.mean([np.mean(r["step_ms"]) for r in ranks])) / 1e3),
+           "bn_modules": ranks[0]["bn_modules"], "grad_elements": ranks[0]["grad_elements"],
+           "loss_first": losses[0][0][-1], "loss_last": losses[0][-1][-1],
+           "losses_equal_across_ranks": bool(np.array_equal(losses[0], losses[1]))}
+    emit("ddp_full", **rec)
+    if not (all(np.isfinite(l).all() for l in losses) and rec["losses_equal_across_ranks"]):
+        raise AssertionError(f"ddp_full: a loss is not finite, or the ranks' losses differ: {rec}")
+    if any(r["splat_launches"] != DDP_FULL_TIMED for r in ranks):
+        raise AssertionError(f"ddp_full: expected one splat launch a rank a step: {rec}")
+    if any(r["splat_max_abs_err"] > 1e-6 or not r["splat_ones_equal"] for r in ranks):
+        raise AssertionError(f"ddp_full: the splat kernel disagrees with its plain version: {rec}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"splat_launches": sum(r["splat_launches"] for r in ranks), "record": rec,
+            "splat_max_abs_err": max(r["splat_max_abs_err"] for r in ranks)}
+
+
+def ddp_cli_worker(workdir: str) -> None:
+    """The torchrun rank of ddp_cli: ``cli.train.main`` then
+    ``cli.detect.main`` on the argument lists of ``workdir/argv.json``
+    (each CLI joins the process group and leaves it), the kernel launches
+    of each counted; the summaries to ``train.json`` and ``detect.json``
+    there. One launch for both: a fresh process is seconds of start-up."""
+    from rtm3d_tpu_torch import load_config
+    from rtm3d_tpu_torch.cli import detect as cli_detect
+    from rtm3d_tpu_torch.cli import train as cli_train
+    from rtm3d_tpu_torch.ops import lm_solver as lm
+    from rtm3d_tpu_torch.ops import splat
+
+    argv = json.load(open(os.path.join(workdir, "argv.json")))
+    cfg = load_config(argv["train"][argv["train"].index("--model-config") + 1])
+    splat.splat_heatmap.launches = 0
+    out = cli_train.main(argv["train"])
+    torch.cuda.synchronize()
+    train = cli_record(out, int(cfg.BATCH_SIZE), int(cfg.get("num_workers", 0)), splat.splat_heatmap.launches)
+    train["history"] = [{k: h[k] for k in ("steps", "eval_batches", "train_loss", "eval_loss")}
+                        for h in out["history"]]
+    del out
+    torch.cuda.empty_cache()
+    lm.lm_solve.launches = 0
+    out = cli_detect.main(argv["detect"])
+    torch.cuda.synchronize()
+    detect = {"images": out["images"], "batches": len(out["batch_s"]), "lm_launches": lm.lm_solve.launches,
+              "device_images_per_s": out["device_images_per_s"], "wall_images_per_s": out["wall_images_per_s"],
+              "batch_ms": [1e3 * t for t in out["batch_s"]]}
+    for name, rec in (("train", train), ("detect", detect)):
+        rec["rank"] = int(os.environ["RANK"])
+        with open(os.path.join(workdir, f"{name}.json"), "w") as f:
+            json.dump(rec, f)
+
+
+def ddp_cli_phase(tree: str, data_rec: dict, detect_rec: dict, device_weights: str) -> dict:
+    """The CLIs under ``python -m torch.distributed.run --nproc-per-node 1``,
+    NCCL at world size 1: cli.train --multihost on the data phase's tree
+    (the TPU config, 1 epoch), gated as the data phase's runs, its step
+    spans beside the data phase's (no process group); cli.detect on the
+    detect_cli phase's weights, whose result files must equal
+    detect_cli_device's."""
+    root = os.path.dirname(tree)
+    workdir = os.path.abspath(os.path.join("chip_smoke_out", "ddp", "cli"))
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    config = os.path.join(CONFIGS, "rtm3d_dla34_kitti_tpu.yaml")
+    weights = os.path.join(root, "weights_ddp")
+    out_dir = os.path.join(root, "results_ddp")
+    with open(os.path.join(workdir, "argv.json"), "w") as f:
+        json.dump({"train": ["--model-config", config, "--data-path", tree, "--multihost", "--set",
+                             "TRAINING.WEIGHTS", weights, "TRAINING.CHECKPOINT_MODE", "start", "SOLVER.MAX_EPOCH", "1"],
+                   "detect": ["--model-config", config, "--data-path", tree, "--split", "train", "--batch-size",
+                              str(DETECT_BATCH), "--checkpoint", device_weights, "--out-dir", out_dir]}, f)
+    ddp_launch([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+                os.path.abspath(__file__), "--ddp-worker", "cli", workdir, "0"], 1, "cli")
+    train = json.load(open(os.path.join(workdir, "train.json")))
+    shutil.rmtree(weights, ignore_errors=True)
+    hist = train["history"]
+    want = sum(h["steps"] + h["eval_batches"] for h in hist)
+    rec = {"launch": "torch.distributed.run --nproc-per-node 1, NCCL, world size 1",
+           **{k: v for k, v in train.items() if k != "history"},
+           "no_ddp_last_epoch_step_span_ms_each": data_rec["last_epoch_step_span_ms_each"],
+           "no_ddp_last_epoch_step_span_ms_per_step": data_rec["last_epoch_step_span_ms_per_step"]}
+    emit("ddp_cli_train", **rec)
+    losses = [v for h in hist for v in h["train_loss"] + (h["eval_loss"] or [])]
+    if not all(np.isfinite(losses)) or train["img_size"] != KITTI_RECT or train["splat_launches"] != want:
+        raise AssertionError(f"ddp_cli_train: a loss is not finite, img_size is not {KITTI_RECT}, or not one "
+                             f"splat launch per train and eval batch ({want}): {rec}")
+
+    det = json.load(open(os.path.join(workdir, "detect.json")))
+    names = sorted(os.path.splitext(f)[0] for f in os.listdir(os.path.join(root, "results_device")))
+    cmp = compare_result_dirs(os.path.join(root, "results_device"), out_dir, names)
+    identical = all(open(os.path.join(root, "results_device", f"{n}.txt")).read()
+                    == open(os.path.join(out_dir, f"{n}.txt")).read() for n in names)
+    drec = {**det, "result_files": len(os.listdir(out_dir)), "vs_detect_cli_device": cmp, "files_identical": identical,
+            "no_ddp_device_images_per_s": detect_rec["device_images_per_s"], "no_ddp_batch_ms": detect_rec["batch_ms"]}
+    emit("ddp_cli_detect", **drec)
+    within = (cmp["lines"] == cmp["lines_got"] > 0 and cmp["box_agree_share"] == 1.0
+              and all(cmp["max_abs"][k] <= PARITY_GATE[k] for k in ("score", "angle", "dim", "loc")))
+    if (det["images"] != DATA_TRAIN or drec["result_files"] != DATA_TRAIN or det["lm_launches"] != 2 * det["batches"]
+            or not (identical or within)):
+        raise AssertionError(f"ddp_cli_detect: the files differ from detect_cli_device's, or not 2 LM launches "
+                             f"a batch: {drec}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"splat_launches": train["splat_launches"], "lm_launches": det["lm_launches"], "train": rec,
+            "detect": drec}
 
 
 def ptxas_lines(log: str) -> list:
@@ -1865,7 +2310,24 @@ def kernel_ab(old_root: str, check_only: bool, out_path: str) -> int:
     return 0
 
 
+def ddp_worker(argv: list) -> int:
+    """``--ddp-worker KIND DIR RANK``: one rank of a ddp phase."""
+    kind, where, rank = argv[:3]
+    if kind == "fp32":
+        ddp_fp32_worker(where, int(rank))
+    elif kind == "full":
+        ddp_full_worker(where, int(rank))
+    else:
+        ddp_cli_worker(where)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+            return 1
+        return ddp_worker(sys.argv[2:])
     ap = argparse.ArgumentParser(description="Drive the port on one GPU and check it.")
     ap.add_argument("--kernel-ab", metavar="DIR", help="compare the kernels of the package under DIR with these")
     ap.add_argument("--check-only", action="store_true", help="with --kernel-ab: each version once, untimed")
@@ -1914,7 +2376,7 @@ def main() -> int:
     smi = nvidia_smi()
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
-         capability=list(torch.cuda.get_device_capability(0)))
+         capability=list(torch.cuda.get_device_capability(0)), dist=dist_probe())
 
     built = kernel_build.build()  # one nvcc per source, all at once
     # the AP evaluator's host C++ overlap, so that the evaluate phase's
@@ -1977,6 +2439,15 @@ def main() -> int:
     phase_done("int8_cli")
     host_variants = host_variants_phase(splat, load_config, cli_train, tree, from_files["train_cli_host"])
     phase_done("fast_preproc_and_mosaic")
+    torch.cuda.empty_cache()  # the ranks below are processes of their own on this card
+    ddp_fp32 = ddp_fp32_phase()
+    phase_done("ddp_fp32")
+    ddp_full = ddp_full_phase(smi)
+    phase_done("ddp_full")
+    ddp_cli = ddp_cli_phase(tree, from_files["train_cli_device"], from_files_detect["records"]["detect_cli_device"],
+                            from_files_detect["device_weights"])
+    os.remove(from_files_detect["device_weights"])
+    phase_done("ddp_cli")
     emit("seconds", **seconds, total=round(sum(seconds.values()), 2))
 
     pair = (first, second)
@@ -1990,13 +2461,15 @@ def main() -> int:
         "replaces": LM_REPLACES,
         # 2 per detect call: the serve phase's calls, the detect CLI's
         # batches, the ResNet-18 detect run's and the runs from its
-        # artifacts, the int8 runs with 3D (--int8-3d-anyway, evaluate)
+        # artifacts, the int8 runs with 3D (--int8-3d-anyway, evaluate),
+        # the detect CLI under torchrun
         "launches": (served["lm_launches"] + from_files_detect["launches"]
                      + resnet["launches"]["resnet18_detect"] + resnet["launches"]["export_detect"]
-                     + sum(int8_lm.values())),
+                     + sum(int8_lm.values()) + ddp_cli["lm_launches"]),
         "launches_by_path": {"serve": served["lm_launches"], "detect_cli": from_files_detect["launches"],
                              "resnet18_detect": resnet["launches"]["resnet18_detect"],
-                             "export_detect": resnet["launches"]["export_detect"], **int8_lm},
+                             "export_detect": resnet["launches"]["export_detect"], **int8_lm,
+                             "ddp_cli_detect": ddp_cli["lm_launches"]},
         # the largest cost gap where both accept: the lm phases' lanes and
         # every launch of detect_cli_device and of the resnet18 phase's
         # detect runs; the times are those of the pair of launches at
@@ -2016,19 +2489,23 @@ def main() -> int:
         # one launch per train step and eval batch: the timed steps of the
         # train phase, the data phase's three runs of the CLI, the
         # FAST_PREPROC and mosaic runs and the ResNet-18 run; one per overlay
-        # of cli.stats --vis-targets
+        # of cli.stats --vis-targets; one per rank per step of the ddp
+        # phases, and per train and eval batch of the train CLI under torchrun
         "launches": (trained["splat_launches"] + sum(r["splat_launches"] for r in from_files.values())
                      + sum(r["splat_launches"] for r in host_variants.values())
-                     + resnet["launches"]["resnet18_train"] + resnet["launches"]["stats"]),
+                     + resnet["launches"]["resnet18_train"] + resnet["launches"]["stats"]
+                     + ddp_fp32["splat_launches"] + ddp_full["splat_launches"] + ddp_cli["splat_launches"]),
         "launches_by_path": {"train": trained["splat_launches"],
                              **{k: r["splat_launches"] for k, r in from_files.items()},
                              **{k: r["splat_launches"] for k, r in host_variants.items()},
                              "resnet18_train": resnet["launches"]["resnet18_train"],
-                             "stats": resnet["launches"]["stats"]},
+                             "stats": resnet["launches"]["stats"], "ddp_fp32": ddp_fp32["splat_launches"],
+                             "ddp_full": ddp_full["splat_launches"], "ddp_cli_train": ddp_cli["splat_launches"]},
         # at the train phase's shape, on the edge batch and at both data
-        # modes' and the ResNet-18 run's shapes and labels
+        # modes' and the ResNet-18 run's shapes and labels, and on each
+        # ddp_full rank's first batch
         "max_abs_err": max([r["max_abs_err"] for r in (splat_main, splat_edge, *data_splats.values())]
-                           + [resnet["splat_max_abs_err"]]),
+                           + [resnet["splat_max_abs_err"], ddp_full["splat_max_abs_err"]]),
         "ms": splat_main["kernel_ms"],
         # "profiler" (the kernel alone) or "graph" (kernel_device_ms)
         "timed_by": splat_main["timed_by"],

@@ -1,7 +1,7 @@
 """Inference entry point: KITTI frames to KITTI result files.
 
 Port of ``rtm3d_tpu/cli/detect.py:35-285`` (the float path) and its
-``_save_vis`` (:413-499), for one process on one GPU: reader
+``_save_vis`` (:413-499): reader
 (``data/kitti.py``) -> loader (``data/loader.py``, a padded final batch)
 -> pinned side-stream copy of the next batch while this one runs ->
 detect step (network, decode, the LM kernel twice) -> 2D boxes mapped back
@@ -20,9 +20,22 @@ artifact of ``cli/export.py`` instead: no model is built and no weights are
 loaded, the artifact's batch overrides ``--batch-size`` (the loader pads
 the last batch, and a split shorter than it, to that batch) and its input
 size must be the split's. Under ``TPU.DEVICE_WARP`` the
-loader ships raw canvases and the step resamples them on the device. The
-port serves on one device; ``--device`` is ``cuda`` by default, and without
-a GPU the run raises unless it is given ``--device cpu``.
+loader ships raw canvases and the step resamples them on the device.
+``--device`` is ``cuda`` by default, and without a GPU the run raises
+unless it is given ``--device cpu``.
+
+Under torchrun it serves data-parallel, one process per device
+(``rtm3d_tpu/cli/detect.py:197-208``; ``parallel/dist.py``)::
+
+    python -m torch.distributed.run --nproc-per-node N -m rtm3d_tpu_torch.cli.detect ... [--device cpu]
+
+Each rank serves the strided shard of the frame list on
+``cuda:LOCAL_RANK`` (or the CPU) at ``--batch-size / world size`` frames
+a batch (which must divide; an export's batch is per rank) and writes
+the result files of its real rows; the master prints the summary after
+a barrier. With ``--int8`` the master calibrates, over the batches one
+process would, and sends the scales to every rank, so that every rank
+serves the same int8 network.
 
 ``--int8`` serves the post-training quantized network (``nn/quant.py``,
 ``rtm3d_tpu/cli/detect.py:44-81,170-195,288-410``): activation scales from
@@ -55,6 +68,7 @@ from rtm3d_tpu_torch.data.kitti import create_dataset
 from rtm3d_tpu_torch.data.loader import DataLoader, prefetch_to_device
 from rtm3d_tpu_torch.eval.kitti_writer import detections_to_lines, write_results
 from rtm3d_tpu_torch.nn.model import create_model
+from rtm3d_tpu_torch.parallel import dist
 from rtm3d_tpu_torch.train.checkpoint import load_detect_weights
 from rtm3d_tpu_torch.train.step import make_detect_step, make_detect_step_from_export, resolve_device
 
@@ -109,11 +123,21 @@ def main(argv=None) -> dict:
     ``images``, ``img_size``, ``device_s`` (the detect calls, each ending in
     the copy of its outputs to the host) and ``wall_s`` (loader, copies and
     writes included) with their images/s, and per batch ``batch_s`` (each
-    call) and ``wait_s`` (the loop's wait for the batch)."""
+    call) and ``wait_s`` (the loop's wait for the batch). Under torchrun
+    ``images`` counts every rank's frames, the rest is this rank's."""
     args = parse_args(argv)
     if args.from_export and args.int8:
         raise ValueError("--int8 quantizes the network, and an export holds no int8 program: drop --from-export")
-    device = resolve_device(None if args.device == "cuda" else args.device)
+    if not dist.launched():
+        return _detect(args, resolve_device(None if args.device == "cuda" else args.device))
+    device = dist.init_distributed(None if args.device == "cuda" else args.device)
+    try:
+        return _detect(args, device)
+    finally:
+        dist.shutdown()
+
+
+def _detect(args, device) -> dict:
     cfg = load_config(args.model_config, args.set)
     if args.data_path:
         cfg.DATASET.PATH = args.data_path
@@ -123,7 +147,10 @@ def main(argv=None) -> dict:
 
     ds = create_dataset(cfg.DATASET.PATH, cfg, is_training=False, split=args.split)
     cfg.INPUT_SIZE = tuple(ds.img_size)
-    batch_size = min(args.batch_size, len(ds))
+    ranks = dist.world_size()
+    asked = dist.local_batch_size(args.batch_size)
+    batch_size = min(asked, -(-len(ds) // ranks))
+    say = print if dist.is_master() else (lambda *a, **k: None)
     if args.from_export:
         # the checkpoint's weights are baked into the artifact
         from rtm3d_tpu_torch.cli.export import load_exported
@@ -132,8 +159,8 @@ def main(argv=None) -> dict:
         if exported.input_hw != (ds.img_size[1], ds.img_size[0]):
             raise ValueError(f"{args.from_export} takes {exported.input_hw[1]}x{exported.input_hw[0]} frames, "
                              f"the split gives {ds.img_size[0]}x{ds.img_size[1]}")
-        if exported.batch != args.batch_size:
-            print(f"from-export: artifact batch is {exported.batch}, overriding --batch-size")
+        if exported.batch != asked:
+            say(f"from-export: artifact batch is {exported.batch}, overriding --batch-size")
         batch_size = exported.batch  # its one shape: pad_final fills every batch to it
         detect = make_detect_step_from_export(exported, cfg, device=device)
     else:
@@ -144,7 +171,7 @@ def main(argv=None) -> dict:
         else:
             detect = make_detect_step(model, cfg, with_3d=True, device=device)
     loader = DataLoader(
-        ds, batch_size, shuffle=False, drop_last=False, num_shards=1, shard_index=0,
+        ds, batch_size, shuffle=False, drop_last=False, num_shards=ranks, shard_index=dist.rank(),
         pad_final=True,  # one batch shape; the padded tail is skipped below
         num_workers=int(cfg.get("num_workers", 0)),
     )
@@ -185,12 +212,17 @@ def main(argv=None) -> dict:
         t_wait = time.perf_counter()
     wall = time.perf_counter() - t_wall
     device_s = sum(batch_s)
-    print(
-        f"detect: {n_img} images, device {device_s:.2f}s ({n_img / max(device_s, 1e-9):.1f} img/s), "
+    total = n_img
+    if ranks > 1:
+        dist.sync_processes("detect_done")
+        total = int(dist.all_reduce_sum(torch.tensor([n_img], device=device)).item())
+    say(
+        f"detect: {total} images, device {device_s:.2f}s ({n_img / max(device_s, 1e-9):.1f} img/s), "
         f"end-to-end {wall:.2f}s ({n_img / max(wall, 1e-9):.1f} img/s incl. load+write), "
-        f"results -> {args.out_dir}"
+        + (f"{ranks} ranks (times and rates of rank 0), " if ranks > 1 else "")
+        + f"results -> {args.out_dir}"
     )
-    return {"images": n_img, "img_size": list(ds.img_size), "device_s": device_s, "wall_s": wall,
+    return {"images": total, "img_size": list(ds.img_size), "device_s": device_s, "wall_s": wall,
             "device_images_per_s": n_img / max(device_s, 1e-9), "wall_images_per_s": n_img / max(wall, 1e-9),
             "batch_s": batch_s, "wait_s": wait_s}
 
@@ -200,22 +232,31 @@ def _int8_detect_step(args, cfg, model, ds, batch_size: int, device):
     loaded or calibrated (``_int8_scales``), ``TPU.INT8_SKIP`` applied, the
     quantized copy of ``model`` served by ``make_detect_step``; then the
     float-consistency gate over the calibration batches, or the notice that
-    it was skipped."""
+    it was skipped. Under a process group the master loads or calibrates
+    the scales, over the batches of one process (``--batch-size`` frames),
+    and every rank serves the master's: each rank's own could differ in
+    the last bit, and a flipped int8 value travels through the network
+    (PERF.md). The master alone runs the gate."""
     from rtm3d_tpu_torch.nn import quant
 
-    scales, calib = _int8_scales(args, cfg, model, ds, batch_size, device)
+    if dist.world_size() == 1:
+        scales, calib = _int8_scales(args, cfg, model, ds, batch_size, device)
+    else:
+        scales, calib = (_int8_scales(args, cfg, model, ds, min(args.batch_size, len(ds)), device)
+                         if dist.is_master() else (None, None))
+        scales = dist.broadcast_object(scales)
     skip = tuple(cfg.TPU.get("INT8_SKIP", ()))
     if skip:
         scales = quant.skip_scales(scales, skip)
     qmodel = quant.quantize_model(model, scales)
     with_3d = args.int8_3d_anyway
-    if not with_3d:
+    if not with_3d and dist.is_master():
         print("int8: serving 2D-only (the 3D residual gate keeps at most ~41% of float 3D detections under int8, "
               "best of a 4-scheme calibration sweep of the JAX package); pass --int8-3d-anyway to emit 3D "
               "output, or serve bf16")
     if calib and not args.int8_no_gate:
         int8_float_gate(cfg, model, qmodel, calib, device)
-    elif not args.int8_no_gate:
+    elif not args.int8_no_gate and dist.is_master():
         print("int8 gate skipped (scales loaded from disk; pass --calib-batches without --calib-scales, or run "
               "evaluate --int8-guard for the gt-scored gate)")
     return make_detect_step(qmodel, cfg, with_3d=with_3d, device=device)

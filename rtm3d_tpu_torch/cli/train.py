@@ -1,16 +1,30 @@
 """Training entry point: KITTI files to checkpoints.
 
-Port of ``rtm3d_tpu/cli/train.py:46-274`` for one process on one GPU:
-reader (``data/kitti.py``) -> augmentation -> loader workers
-(``data/loader.py``) -> pinned, side-stream copy to the GPU -> train step
-(targets by the splat kernel) -> eval-loss epoch -> checkpoints -> resume.
+Port of ``rtm3d_tpu/cli/train.py:46-274``: reader (``data/kitti.py``) ->
+augmentation -> loader workers (``data/loader.py``) -> pinned,
+side-stream copy to the GPU -> train step (targets by the splat kernel)
+-> eval-loss epoch -> checkpoints -> resume.
 
     python -m rtm3d_tpu_torch.cli.train --model-config configs/rtm3d_dla34_kitti.yaml \\
         [--data-path PATH] [--num-epochs N] [--batch-size B] [--set KEY VALUE ...] [--device cpu]
 
-The flags are the JAX CLI's (``--multihost`` aside: data parallelism is
-ROADMAP.md queue A) plus ``--device``, ``cuda`` by default; without a GPU
-the run raises unless it is given ``--device cpu``.
+The flags are the JAX CLI's plus ``--device``, ``cuda`` by default;
+without a GPU the run raises unless it is given ``--device cpu``.
+
+``--multihost`` trains data-parallel, one process per device, under
+torchrun (``parallel/dist.py``; the JAX CLI's flag, :54-58, 114-115)::
+
+    python -m torch.distributed.run --nproc-per-node N -m rtm3d_tpu_torch.cli.train --multihost \\
+        --model-config ... [--device cpu]
+
+Each rank runs on ``cuda:LOCAL_RANK`` (NCCL) or, with ``--device cpu``,
+on the CPU (gloo); ``BATCH_SIZE`` is the global batch, and each rank
+loads its strided shard of every epoch at ``BATCH_SIZE / world size``
+(which must divide). The warm-up collective runs before the first step.
+The losses, and so the best-model decision, are the global batch's on
+every rank. The master alone prints, writes TensorBoard and saves
+``.pt`` files; under ``TRAINING.USE_ORBAX`` every rank writes the
+collective directory saves (``train/checkpoint.py``).
 
 ``TRAINING.CHECKPOINT_MODE`` is ``start``, ``resume`` (from the
 ``last_checkpoint`` pointer under ``TRAINING.WEIGHTS/<BACKBONE>``, when
@@ -47,6 +61,7 @@ from rtm3d_tpu_torch.config import load_config
 from rtm3d_tpu_torch.data.kitti import create_dataset
 from rtm3d_tpu_torch.data.loader import DataLoader, prefetch_to_device
 from rtm3d_tpu_torch.nn.model import create_model
+from rtm3d_tpu_torch.parallel import dist
 from rtm3d_tpu_torch.train.checkpoint import CheckPointer, import_reference_weights, load_torch_weights
 from rtm3d_tpu_torch.train.state import TrainState
 from rtm3d_tpu_torch.train.step import make_eval_loss_step, make_train_step, resolve_device
@@ -64,6 +79,8 @@ def parse_args(argv=None):
     p.add_argument("--test-interval", type=int, default=1)
     p.add_argument("--seed", type=int, default=20)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--multihost", action="store_true",
+                   help="data-parallel over the ranks of torchrun (one process per device)")
     p.add_argument("--set", nargs="*", default=[], help="dotted config overrides")
     return p.parse_args(argv)
 
@@ -99,11 +116,12 @@ def build_image_cache(ds, device):
         return None
     arr = ds.canvas_array()
     cache = torch.from_numpy(arr).to(device)
-    print(f"device data cache: {arr.nbytes / 1e9:.2f} GB resident on {device}")
+    if dist.is_master():
+        print(f"device data cache: {arr.nbytes / 1e9:.2f} GB resident on {device}")
     return cache
 
 
-def _model_state(cfg, seed: int, device, max_iters: int):
+def _model_state(cfg, seed: int, device, max_iters: int, say=print):
     model = create_model(cfg, torch.Generator().manual_seed(seed))
     mode = str(cfg.TRAINING.CHECKPOINT_MODE).lower()
     if mode not in MODES:
@@ -113,12 +131,12 @@ def _model_state(cfg, seed: int, device, max_iters: int):
         if path and not path.endswith((".pt", ".pth", ".pkl")):
             raise ValueError(f"pretrained weights must be a .pt, .pth or .pkl file, got {path!r}")
         if not path:
-            print("pretrained: no TRAINING.CHECKPOINT_FILE; training from init")
+            say("pretrained: no TRAINING.CHECKPOINT_FILE; training from init")
         elif not os.path.exists(path):
-            print(f"WARNING: pretrained weights {path} not found; training from init")
+            say(f"WARNING: pretrained weights {path} not found; training from init")
         else:
             report = import_reference_weights(model, load_torch_weights(path)[0])
-            print(f"imported {len(report['loaded'])} tensors from {path}; {len(report['missed'])} missed")
+            say(f"imported {len(report['loaded'])} tensors from {path}; {len(report['missed'])} missed")
     return mode, TrainState.create(model, cfg, device=device, max_iters=max_iters)
 
 
@@ -135,10 +153,24 @@ def main(argv=None, *, on_start=None):
     it is called once the state is built or restored, before the first
     step, so that a check (``chip_smoke.py``'s resume gate,
     ``tests/test_torch_train_cli.py``) can compare the state this run
-    restored with the tensors saved before it."""
+    restored with the tensors saved before it.
+
+    With ``--multihost`` it joins the process group first and leaves it
+    on return; the summary is this rank's (its losses the global batch's)."""
     args = parse_args(argv)
-    device = resolve_device(None if args.device == "cuda" else args.device)
+    if not args.multihost:
+        return _train(args, resolve_device(None if args.device == "cuda" else args.device), on_start)
+    device = dist.init_distributed(None if args.device == "cuda" else args.device)
+    try:
+        return _train(args, device, on_start)
+    finally:
+        dist.shutdown()
+
+
+def _train(args, device, on_start):
     cfg = setup(args)
+    master = dist.is_master()
+    say = print if master else (lambda *a, **k: None)
 
     train_ds = create_dataset(cfg.DATASET.PATH, cfg, is_training=True, split="train")
     test_ds = create_dataset(cfg.DATASET.PATH, cfg, is_training=False, split="test")
@@ -148,24 +180,28 @@ def main(argv=None, *, on_start=None):
     test_ds.img_size = list(train_ds.img_size)
 
     workers = int(cfg.get("num_workers", 0))
-    batch = int(cfg.BATCH_SIZE)
-    train_loader = DataLoader(train_ds, batch, shuffle=True, seed=args.seed, num_workers=workers)
+    batch = dist.local_batch_size(int(cfg.BATCH_SIZE))
+    shards = {"num_shards": dist.world_size(), "shard_index": dist.rank()}
+    train_loader = DataLoader(train_ds, batch, shuffle=True, seed=args.seed, num_workers=workers, **shards)
     # a full batch even when the split is shorter: pad_final wraps the tail
-    test_loader = DataLoader(test_ds, batch, shuffle=False, drop_last=False, pad_final=True, num_workers=workers)
+    test_loader = DataLoader(test_ds, batch, shuffle=False, drop_last=False, pad_final=True, num_workers=workers,
+                             **shards)
 
     steps_per_epoch = max(len(train_loader), 1)
-    mode, state = _model_state(cfg, args.seed, device, cfg.SOLVER.MAX_EPOCH * steps_per_epoch)
+    mode, state = _model_state(cfg, args.seed, device, cfg.SOLVER.MAX_EPOCH * steps_per_epoch, say)
     w, h = cfg.INPUT_SIZE
     n_params = sum(p.numel() for p in state.model.parameters())
-    print(f"model: {cfg.MODEL.BACKBONE}, params: {n_params / 1e6:.2f}M, input {w}x{h}, device {device}")
+    say(f"model: {cfg.MODEL.BACKBONE}, params: {n_params / 1e6:.2f}M, input {w}x{h}, device {device}"
+        + (f", {dist.world_size()} ranks, {batch} rows each" if dist.world_size() > 1 else ""))
 
-    checkpointer = CheckPointer(os.path.join(cfg.TRAINING.WEIGHTS, cfg.MODEL.BACKBONE))
+    checkpointer = CheckPointer(os.path.join(cfg.TRAINING.WEIGHTS, cfg.MODEL.BACKBONE),
+                                use_orbax=bool(cfg.TRAINING.get("USE_ORBAX", False)))
     start_epoch, min_loss = 0, math.inf
     if mode == "resume" and checkpointer.has_checkpoint():
         state, meta = checkpointer.load(state, use_latest=True)
         start_epoch = int(meta.get("epoch", -1)) + 1
         min_loss = float(meta.get("min_loss", math.inf))
-        print(f"resumed from epoch {start_epoch}, min_loss {min_loss:.4f}")
+        say(f"resumed from epoch {start_epoch}, min_loss {min_loss:.4f}")
 
     train_step = make_train_step(cfg, device=device)
     eval_step = make_eval_loss_step(cfg, device=device)
@@ -174,7 +210,7 @@ def main(argv=None, *, on_start=None):
     cache_bytes = sum(c.numel() for c in (train_cache, test_cache) if c is not None)
 
     tb_writer = None
-    if cfg.TRAINING.LOGDIR:
+    if master and cfg.TRAINING.LOGDIR:
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -184,6 +220,7 @@ def main(argv=None, *, on_start=None):
 
     if on_start is not None:
         on_start(state, start_epoch)
+    dist.warmup_collectives(device)
     timed = device.type == "cuda"
     history = []
     for epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
@@ -201,7 +238,7 @@ def main(argv=None, *, on_start=None):
             items = metrics["loss_items"].detach().cpu().numpy()
             if not np.isfinite(items[-1]):
                 # non-finite loss abort (train.py:97-99)
-                print(f"WARNING: non-finite loss {items}, aborting epoch")
+                say(f"WARNING: non-finite loss {items}, aborting epoch")
                 break
             mloss = (mloss * i + items) / (i + 1)
             ntgt.append(int(metrics["num_targets"]))
@@ -209,9 +246,9 @@ def main(argv=None, *, on_start=None):
                 for name, v in zip(LOSS_NAMES, items):
                     tb_writer.add_scalar(f"loss/{name}", float(v), state.step)
             if i % 10 == 0:
-                print(f"epoch {epoch} it {i}/{steps_per_epoch} "
-                      + " ".join(f"{n}={v:.4f}" for n, v in zip(LOSS_NAMES, mloss))
-                      + f" lr={state.schedule(state.updates):.2e} ntgt={ntgt[-1]}")
+                say(f"epoch {epoch} it {i}/{steps_per_epoch} "
+                    + " ".join(f"{n}={v:.4f}" for n, v in zip(LOSS_NAMES, mloss))
+                    + f" lr={state.schedule(state.updates):.2e} ntgt={ntgt[-1]}")
             t_wait = time.perf_counter()
         train_wall_s = time.perf_counter() - t_ep
         record = {
@@ -225,12 +262,13 @@ def main(argv=None, *, on_start=None):
         if (epoch + 1) % args.test_interval == 0 and len(test_loader) > 0:
             test_items = run_eval_epoch(eval_step, state, test_loader, device, image_cache=test_cache)
             record["eval_loss"], record["eval_batches"] = test_items.tolist(), len(test_loader)
-            print(f"epoch {epoch} test: " + " ".join(f"{n}={v:.4f}" for n, v in zip(LOSS_NAMES, test_items))
-                  + f" ({time.perf_counter() - t_ep:.1f}s)")
+            say(f"epoch {epoch} test: " + " ".join(f"{n}={v:.4f}" for n, v in zip(LOSS_NAMES, test_items))
+                + f" ({time.perf_counter() - t_ep:.1f}s)")
         history.append(record)
 
         # a checkpoint every epoch, and the best by test loss (train.py:158-162);
-        # a non-finite test loss never counts as the best
+        # a non-finite test loss never counts as the best. The test loss is
+        # the global batch's on every rank, so every rank decides alike
         test_total = float(test_items[-1])
         checkpointer.save(f"model_{epoch:07d}", state, epoch=epoch, min_loss=min_loss)
         if math.isfinite(test_total) and test_total < min_loss:

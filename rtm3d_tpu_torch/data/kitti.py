@@ -185,9 +185,9 @@ class KITTIDataset:
         shapes = np.array(shapes, np.int64)
         try:  # write the caches for next time (best effort, as the JAX package)
             os.makedirs(cache_dir, exist_ok=True)
-            np.save(lf, np.array(labels, dtype=object), allow_pickle=True)
-            np.save(kf, np.array(Ks, dtype=object), allow_pickle=True)
-            np.save(sf, shapes, allow_pickle=True)
+            _save_atomic(lf, np.array(labels, dtype=object))
+            _save_atomic(kf, np.array(Ks, dtype=object))
+            _save_atomic(sf, shapes)
         except OSError:
             pass
         return labels, Ks, shapes
@@ -436,6 +436,20 @@ class KITTIDataset:
             "path": self._path(index),
             "shape": self._shapes[index],
         }
+
+
+def _save_atomic(path: str, arr: np.ndarray) -> None:
+    """``np.save`` to ``path`` through a file of this process's own, renamed
+    into place: a process that reads the cache (another rank of a
+    data-parallel run on the same tree) sees the whole file or none."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            np.save(f, arr, allow_pickle=True)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def create_dataset(path, cfg, is_training=True, split="train", augment="auto"):

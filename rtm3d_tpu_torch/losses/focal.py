@@ -16,10 +16,13 @@ def sigmoid_hm(logits: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.sigmoid(logits), 1e-4, 1 - 1e-4)
 
 
-def focal_loss(prediction: torch.Tensor, target: torch.Tensor, alpha: float = 2.0,
-               beta: float = 4.0, sample_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """prediction: clamped probabilities; target: the same shape, any layout.
+def focal_sums(prediction: torch.Tensor, target: torch.Tensor, alpha: float = 2.0,
+               beta: float = 4.0, sample_mask: torch.Tensor | None = None):
+    """``(pos_sum, neg_sum, num_pos)``, the three sums of the focal loss:
+    ``losses/rtm3d_loss.py`` adds them up over the ranks of a process
+    group before ``focal_from_sums`` divides.
 
+    prediction: clamped probabilities; target: the same shape, any layout.
     Positive pixels are exactly target == 1 (noise-damped 0.9999 peaks count
     as negatives, module.py:48-49). ``sample_mask``: optional (B,) validity
     over the leading batch axis; rows where it is False add nothing to
@@ -34,6 +37,9 @@ def focal_loss(prediction: torch.Tensor, target: torch.Tensor, alpha: float = 2.
     neg_weights = torch.pow(1.0 - target, beta)
     pos_loss = torch.log(prediction) * torch.pow(1.0 - prediction, alpha) * pos
     neg_loss = torch.log(1.0 - prediction) * torch.pow(prediction, alpha) * neg_weights * neg
-    num_pos = pos.sum()
-    pos_sum, neg_sum = pos_loss.sum(), neg_loss.sum()
+    return pos_loss.sum(), neg_loss.sum(), pos.sum()
+
+
+def focal_from_sums(pos_sum: torch.Tensor, neg_sum: torch.Tensor, num_pos: torch.Tensor) -> torch.Tensor:
+    """The loss from ``focal_sums``'s three sums."""
     return torch.where(num_pos == 0, -neg_sum, -(pos_sum + neg_sum) / torch.clamp(num_pos, min=1.0))

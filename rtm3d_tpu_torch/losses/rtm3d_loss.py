@@ -21,7 +21,8 @@ from typing import Dict, Sequence
 
 import torch
 
-from rtm3d_tpu_torch.losses.focal import focal_loss, sigmoid_hm
+from rtm3d_tpu_torch.losses.focal import focal_from_sums, focal_sums, sigmoid_hm
+from rtm3d_tpu_torch.parallel.dist import all_reduce_sum, world_size
 
 
 def _gather_pixels(fmap: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
@@ -34,12 +35,43 @@ def _gather_pixels(fmap: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return out.transpose(1, 2).reshape(xy.shape[:-1] + (C,))
 
 
-def _masked_mean_l1(pred: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Mean |pred - tgt| over the rows where w, every component counted."""
+def _l1_sums(pred: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor):
+    """(sum of |pred - tgt| over the rows where w, every component counted;
+    the count of those components)."""
     w = w.to(pred.dtype)
-    num = (torch.abs(pred - tgt) * w[..., None]).sum()
-    den = w.sum() * pred.shape[-1]
+    return (torch.abs(pred - tgt) * w[..., None]).sum(), w.sum() * pred.shape[-1]
+
+
+def _mean(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """num / den, 0 for an empty selection."""
     return torch.where(den > 0, num / torch.clamp(den, min=1.0), 0.0)
+
+
+def _rank_terms(focal, l1s):
+    """(this rank's share of each term, each term over the global batch),
+    over the W ranks of the process group (W = 1 with none).
+
+    One ``all_reduce`` adds up every term's numerator and count. A term's
+    value over the global batch is the sum of the numerators over the sum
+    of the counts, and the focal term's ``num_pos == 0`` branch is taken
+    on the global count. A rank's share is ``W * its numerator / the
+    global count``: the mean over the ranks of the shares' gradients
+    (what the train step's gradient all-reduce computes) is then the
+    gradient of the global-batch loss. The global values are detached.
+    With one rank the reduction is the identity and ``W = 1.0``, so each
+    share is its term's value, and its gradient, bit for bit (the counts
+    carry no gradient)."""
+    pos_sum, neg_sum, num_pos = focal
+    parts = [pos_sum, neg_sum, num_pos] + [v for pair in l1s for v in pair]
+    g = all_reduce_sum(torch.stack([v.detach() for v in parts]))
+    n = float(world_size())
+    share = [n * focal_from_sums(pos_sum, neg_sum, g[2])]
+    value = [focal_from_sums(g[0], g[1], g[2])]
+    for i, (num, _) in enumerate(l1s):
+        num_g, den_g = g[3 + 2 * i], g[4 + 2 * i]
+        share.append(n * _mean(num, den_g))
+        value.append(_mean(num_g, den_g))
+    return share, value
 
 
 def rtm3d_loss(
@@ -59,14 +91,18 @@ def rtm3d_loss(
     ``sample_mask``: optional (B,) bool; False rows are left out of every
     term's sums and counts, so the result is the loss of the valid rows
     alone (the reference's test_epoch averages true batches, train.py:61-81).
+
+    Under a process group of more than one rank, ``aux`` holds the loss
+    of the global batch (every rank's rows), equal on every rank, and
+    ``loss`` is this rank's share of it, to differentiate: the mean of
+    the ranks' gradients is the global-batch loss's (``_rank_terms``).
     """
     m_hm_pred, ver_coor_pred, m_off_pred, v_off_pred = (l.float() for l in logits)
     mask, noise = targets["mask"], targets["noise_mask"]
     m_proj, v_proj, v_mask = targets["m_proj"], targets["v_proj"], targets["v_mask"]
 
     # main keypoint focal (rtm3d_loss.py:285)
-    loss_mkf = focal_loss(sigmoid_hm(m_hm_pred), targets["m_hm"], focal_alpha, focal_beta,
-                          sample_mask=sample_mask)
+    focal = focal_sums(sigmoid_hm(m_hm_pred), targets["m_hm"], focal_alpha, focal_beta, sample_mask=sample_mask)
 
     ofm_valid = mask & ~noise & targets["mask_3d"]  # (B, N) (rtm3d_loss.py:300)
     m_valid = mask & ~noise
@@ -78,18 +114,14 @@ def rtm3d_loss(
     # vertex-from-center coordinates at the gt centers, raw (rtm3d_loss.py:303-310)
     B, N = m_proj.shape[:2]
     vc_pred = _gather_pixels(ver_coor_pred, m_proj).reshape(B, N, 8, 2)
-    loss_vfm = _masked_mean_l1(vc_pred, targets["v_coor_off"], w_vc)
     # vertex sub-pixel offsets at the gt vertex pixels (rtm3d_loss.py:312-321)
     vo_pred = torch.sigmoid(_gather_pixels(v_off_pred, v_proj))
-    loss_voff = _masked_mean_l1(vo_pred, targets["v_off"], w_vc)
     # center sub-pixel offsets (rtm3d_loss.py:323-329)
     mo_pred = torch.sigmoid(_gather_pixels(m_off_pred, m_proj))
-    loss_moff = _masked_mean_l1(mo_pred, targets["m_off"], m_valid)
+    l1s = [_l1_sums(vc_pred, targets["v_coor_off"], w_vc), _l1_sums(mo_pred, targets["m_off"], m_valid),
+           _l1_sums(vo_pred, targets["v_off"], w_vc)]
 
-    loss_mkf = loss_mkf * w_mkf
-    loss_vfm = loss_vfm * w_vfm
-    loss_moff = loss_moff * w_m_off
-    loss_voff = loss_voff * w_v_off
-    total = loss_mkf + loss_vfm + loss_moff + loss_voff
-    aux = torch.stack([loss_mkf, loss_vfm, loss_moff, loss_voff, total]).detach()
-    return total, aux
+    weights = (w_mkf, w_vfm, w_m_off, w_v_off)
+    share, value = _rank_terms(focal, l1s)
+    terms = [w * t for w, t in zip(weights, value)]
+    return sum(w * t for w, t in zip(weights, share)), torch.stack(terms + [sum(terms)]).detach()

@@ -45,6 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rtm3d_tpu_torch.parallel.dist import all_reduce_sum, world_size
+
 BN_EPS = 1e-4
 BN_MOMENTUM = 0.03  # torch convention; flax momentum 0.97
 
@@ -89,10 +91,67 @@ class Conv(nn.Conv2d):
             self.bias.uniform_(-b, b, generator=generator)
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the rows of every rank: the JAX step under
+    a ``data`` mesh takes flax's batch statistics over the global batch.
+
+    Forward: one ``all_reduce`` of ``[sum(x - K), sum((x - K)^2), n]`` per
+    channel, from this rank's ``torch.var_mean`` (one pass over ``x``),
+    in float64; from it the global mean and the biased variance, and the
+    running statistics folded as flax folds them (``BatchNorm``). ``K`` is
+    the running mean, equal on every rank: a shift that keeps the
+    subtraction ``E[(x-K)^2] - E[x-K]^2`` from cancelling when a channel's
+    mean is large against its spread. float64 keeps the count exact past
+    2^24 values. Backward: one ``all_reduce`` of ``[sum(dy), sum(dy *
+    x_hat)]``, and the input gradient of BatchNorm over the global batch;
+    the weight and bias gradients are this rank's sums, which the train
+    step's gradient all-reduce adds up. Statistics in the running
+    statistics' dtype (float32, float64 in the reduction) whatever ``x``'s
+    dtype (bfloat16 under autocast); the output in ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum: float, eps: float):
+        C = x.shape[1]
+        n = x.numel() // C
+        sdt = running_mean.dtype  # the statistics' dtype: float32, or float64 for a float64 module
+        shift = running_mean.detach().double()
+        var_l, mean_l = torch.var_mean(x.to(sdt), dim=(0, 2, 3), correction=0)
+        d_l = mean_l.double() - shift
+        stats = torch.cat([n * d_l, n * (var_l.double() + d_l * d_l), d_l.new_full((1,), float(n))])
+        stats = all_reduce_sum(stats)
+        total = stats[-1]
+        d = stats[:C] / total
+        mean = (shift + d).to(sdt)
+        var = (stats[C:2 * C] / total - d * d).clamp_(min=0.0).to(sdt)
+        with torch.no_grad():
+            running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
+            running_var.mul_(1 - momentum).add_(var, alpha=momentum)
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.total = total
+        return F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, invstd = ctx.saved_tensors
+        C = x.shape[1]
+        dyf = dy.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - mean[:, None, None]) * invstd[:, None, None]
+        sums = torch.cat([dyf.sum((0, 2, 3)), (dyf * xhat).sum((0, 2, 3))])
+        dbias, dweight = sums[:C].clone(), sums[C:].clone()
+        sums = all_reduce_sum(sums)
+        scale = (weight * invstd)[:, None, None]
+        total = ctx.total.to(mean.dtype)
+        dx = scale * (dyf - sums[:C, None, None] / total - xhat * (sums[C:, None, None] / total))
+        return dx.to(x.dtype), dweight, dbias, None, None, None, None
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm with the reference's eps/momentum (torch_utils.py:79-81);
     in train mode ``running_var`` follows the biased batch variance, as
-    flax's does."""
+    flax's does. In train mode under a process group of more than one rank
+    the statistics are the global batch's (``_SyncBatchNorm``); with one
+    rank, or none, the path below is the one it always was."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -102,6 +161,9 @@ class BatchNorm(nn.BatchNorm2d):
             return super().forward(x)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
+        if world_size() > 1:
+            return _SyncBatchNorm.apply(x, self.weight, self.bias, self.running_mean, self.running_var,
+                                        self.momentum, self.eps)
         n = x.numel() // x.shape[1]
         # torch folds the unbiased batch variance into the copy it is given
         # (autograd saves that copy, so it is not touched again):

@@ -3,7 +3,10 @@
 - ``CheckPointer``: save and resume the train state, one ``torch.save``
   file per save with a ``last_checkpoint`` pointer (port of
   ``rtm3d_tpu/train/checkpoint.py:37-175``; reference
-  utils/check_point.py:116-175).
+  utils/check_point.py:116-175), or under ``TRAINING.USE_ORBAX`` one
+  ``torch.distributed.checkpoint`` directory per save, written by every
+  rank (the JAX package's collective orbax directories, :56-61, 98-123;
+  the format is torch's, not orbax's).
 - ``state_dict_from_jax``: the JAX package's variables (nested dicts of
   numpy arrays, ``{"params": ..., "batch_stats": ...}``) -> this package's
   state_dict, by exact name. The name and layout translation is the port's
@@ -26,8 +29,7 @@
 - ``load_detect_weights``: what the detect CLI and ``Detector.from_config``
   load, by file kind (``rtm3d_tpu/cli/detect.py:92-130``).
 
-Orbax directories and multi-process saves are neither read nor written
-(ROADMAP.md, queue A: Data-parallel).
+The JAX package's orbax directories are not read (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,27 +37,40 @@ from __future__ import annotations
 import math
 import os
 import re
+import shutil
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from rtm3d_tpu_torch.parallel.dist import initialized, is_master, sync_processes
+
 
 class CheckPointer:
     """``<name>.pt`` files under ``save_dir`` with a ``last_checkpoint``
-    pointer file that each save tags.
+    pointer file that each save tags; with ``use_orbax``
+    (``TRAINING.USE_ORBAX``), ``<name>/`` directories of
+    ``torch.distributed.checkpoint``.
 
-    A file holds the model's state dict (parameters and BN buffers), the
+    A save holds the model's state dict (parameters and BN buffers), the
     optimizer's state dict, the EMA shadow (or None), ``step``,
     ``updates``, ``epoch`` and ``min_loss``. ``max_to_keep`` bounds the
-    rolling ``model_*`` files (the oldest go; ``model_best`` is never
+    rolling ``model_*`` saves (the oldest go; ``model_best`` is never
     removed): the reference saves every epoch without bound
-    (train.py:158-162)."""
+    (train.py:158-162).
 
-    def __init__(self, save_dir: str, max_to_keep: int = 5):
+    Under a process group every rank calls ``save``. The train state is
+    the same on every rank, so a ``.pt`` file is written by the master
+    alone (train_multi_gpu.py:226-230; the other ranks return its path at
+    once); a directory save is collective: each rank writes its share of
+    the tensors, and the master tags the pointer. Either kind resumes in
+    any world size."""
+
+    def __init__(self, save_dir: str, max_to_keep: int = 5, use_orbax: bool = False):
         self.save_dir = save_dir
         self.max_to_keep = max_to_keep
+        self.use_orbax = use_orbax
         os.makedirs(save_dir, exist_ok=True)
 
     # -- pointer file (check_point.py:156-175) --
@@ -78,6 +93,11 @@ class CheckPointer:
 
     # -- save/load --
     def save(self, name: str, state, epoch: int = 0, min_loss: float = math.inf) -> str:
+        if self.use_orbax:
+            return self._save_dir(name, state, epoch, min_loss)
+        path = os.path.join(self.save_dir, f"{name}.pt")
+        if not is_master():
+            return path
         payload = {
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
@@ -87,10 +107,36 @@ class CheckPointer:
             "epoch": int(epoch),
             "min_loss": float(min_loss),
         }
-        path = os.path.join(self.save_dir, f"{name}.pt")
         torch.save(payload, path)
         self.tag_last_checkpoint(path)
         self._enforce_retention(keep=os.path.basename(path))
+        return path
+
+    def _save_dir(self, name: str, state, epoch: int, min_loss: float) -> str:
+        """A ``torch.distributed.checkpoint`` directory: the tensors under
+        flat names (``model/``, ``ema/``, ``optimizer/<index>/``) and the
+        rest as one item, ``meta``: a tuple, which the checkpoint stores
+        whole (it would flatten a dict), so the optimizer's hyperparameters
+        come back as they were (``betas`` a tuple). A save of an existing
+        name replaces it."""
+        import torch.distributed.checkpoint as dcp
+
+        path = os.path.abspath(os.path.join(self.save_dir, name))
+        if is_master() and os.path.isdir(path):
+            shutil.rmtree(path)
+        sync_processes(f"checkpoint_save:{name}")
+        opt = state.optimizer.state_dict()
+        payload = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+        payload.update({f"ema/{k}": v for k, v in (state.ema or {}).items()})
+        payload.update({f"optimizer/{i}/{k}": v for i, st in opt["state"].items() for k, v in st.items()})
+        payload["meta"] = ({
+            "step": int(state.step), "updates": int(state.updates), "epoch": int(epoch),
+            "min_loss": float(min_loss), "ema": state.ema is not None, "param_groups": opt["param_groups"],
+        },)
+        dcp.save(payload, checkpoint_id=path, no_dist=not initialized())
+        if is_master():
+            self.tag_last_checkpoint(path)
+            self._enforce_retention(keep=os.path.basename(path))
         return path
 
     def _enforce_retention(self, keep: str):
@@ -98,20 +144,27 @@ class CheckPointer:
             return
         rolling = sorted(
             f for f in os.listdir(self.save_dir)
-            if f.startswith("model_") and not f.startswith("model_best") and f.endswith(".pt")
+            if f.startswith("model_") and not f.startswith("model_best")
+            and (f.endswith(".pt") or os.path.isdir(os.path.join(self.save_dir, f)))
         )
         for f in rolling[: max(0, len(rolling) - self.max_to_keep)]:
             if f != keep:
+                target = os.path.join(self.save_dir, f)
                 try:
-                    os.remove(os.path.join(self.save_dir, f))
+                    if os.path.isdir(target):
+                        shutil.rmtree(target)
+                    else:
+                        os.remove(target)
                 except OSError:
                     pass
 
     def load(self, state_template, path: Optional[str] = None, use_latest: bool = True):
-        """Returns ``(state, meta)``, meta = {'epoch', 'min_loss'}: the file
-        (the pointer's when ``use_latest``) restored in place into
-        ``state_template``, bit for bit, on the template's device. With no
-        file, ``(state_template, {})`` (check_point.py:139-145)."""
+        """Returns ``(state, meta)``, meta = {'epoch', 'min_loss'}: the save
+        (the pointer's when ``use_latest``), a ``.pt`` file or a directory
+        of either world size, restored in place into ``state_template``,
+        bit for bit, on the template's device. With no save,
+        ``(state_template, {})`` (check_point.py:139-145). A directory is
+        loaded collectively: under a process group every rank calls."""
         if use_latest and self.has_checkpoint():
             path = self.get_checkpoint_file()
         if not path or not os.path.exists(path):
@@ -119,7 +172,10 @@ class CheckPointer:
         # read to the host: load_state_dict copies each tensor onto its
         # template's device, and leaves Adamax's step counters on the host
         # where the optimizer keeps them
-        payload = torch.load(path, map_location="cpu", weights_only=True)
+        if os.path.isdir(path):
+            payload = read_checkpoint_dir(path)
+        else:
+            payload = torch.load(path, map_location="cpu", weights_only=True)
         state_template.model.load_state_dict(payload["model"], strict=True)
         state_template.optimizer.load_state_dict(payload["optimizer"])
         if (payload["ema"] is None) != (state_template.ema is None):
@@ -132,6 +188,41 @@ class CheckPointer:
         state_template.step = payload["step"]
         state_template.updates = payload["updates"]
         return state_template, {"epoch": payload["epoch"], "min_loss": payload["min_loss"]}
+
+
+def is_checkpoint_dir(path: str) -> bool:
+    """True for a directory that ``CheckPointer`` wrote (``use_orbax``)."""
+    return os.path.isfile(os.path.join(path, ".metadata"))
+
+
+def read_checkpoint_dir(path: str) -> Dict[str, Any]:
+    """A ``CheckPointer`` directory save as the payload of a ``.pt`` save
+    (``model``, ``optimizer``, ``ema``, ``step``, ``updates``, ``epoch``,
+    ``min_loss``), its tensors on the host, in any world size: the
+    template of the load is the directory's own list of tensors. Under a
+    process group every rank must make the call (the load is
+    collective)."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    listed = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    payload = {k: (torch.empty(tuple(m.size), dtype=m.properties.dtype)
+                   if isinstance(m, TensorStorageMetadata) else "") for k, m in listed.items()}
+    dcp.load(payload, checkpoint_id=path, no_dist=not initialized())
+    (meta,) = payload.pop("meta")
+    parts: Dict[str, Dict[str, torch.Tensor]] = {"model": {}, "ema": {}, "optimizer": {}}
+    for k, v in payload.items():
+        kind, name = k.split("/", 1)
+        parts[kind][name] = v
+    optim_state: Dict[int, Dict[str, torch.Tensor]] = {}
+    for k, v in parts["optimizer"].items():
+        i, key = k.split("/", 1)
+        optim_state.setdefault(int(i), {})[key] = v
+    return {
+        "model": parts["model"], "ema": parts["ema"] if meta["ema"] else None,
+        "optimizer": {"state": optim_state, "param_groups": meta["param_groups"]},
+        **{k: meta[k] for k in ("step", "updates", "epoch", "min_loss")},
+    }
 
 
 _HEAD_BRANCHES = ("main_kf", "offset_fr_main", "main_offset", "vertex_offset", "vertex_kf")
@@ -290,13 +381,13 @@ def _torch_load(path: str):
 
 
 def load_torch_weights(path: str) -> Tuple[Dict[str, torch.Tensor], bool]:
-    """``(state_dict, used_ema)`` of a torch weights file. A port
-    ``CheckPointer`` file gives its model's parameters and buffers with the
+    """``(state_dict, used_ema)`` of a torch weights file or a port
+    ``CheckPointer`` directory. A port save gives its model's parameters and buffers with the
     EMA shadow, when the run tracked one, in place of the parameters, as
     ``TrainState.eval_variables`` evaluates them (the reference CheckPointer
     prefers the EMA model, check_point.py:122); any other file is read as a
     reference checkpoint."""
-    obj = _torch_load(path)
+    obj = read_checkpoint_dir(path) if is_checkpoint_dir(path) else _torch_load(path)
     if not _is_port_checkpoint(obj):
         return _reference_weights(obj), False
     sd, ema = dict(obj["model"]), obj["ema"]
@@ -427,7 +518,9 @@ def load_detect_weights(path: Optional[str], model: nn.Module) -> str:
     - ``.pt``/``.pth``/``.pkl``: ``import_reference_weights`` (suffix
       match), from a reference checkpoint, or from a port ``CheckPointer``
       file with its EMA shadow;
-    - a directory: an orbax checkpoint, not read yet;
+    - a ``CheckPointer`` directory (``TRAINING.USE_ORBAX``): as a port
+      ``.pt`` file (collective: under a process group every rank calls);
+    - any other directory: the JAX package's orbax checkpoint, not read;
     - any other file: a flax msgpack checkpoint, EMA preferred;
     - a ``.msgpack`` path that does not exist, with a port ``<stem>.pt``
       beside it: that file, as above. The configs name
@@ -441,12 +534,12 @@ def load_detect_weights(path: Optional[str], model: nn.Module) -> str:
         if os.path.exists(pt):
             stand_in = f"{path} not found; serving the port's checkpoint {pt} beside it: "
             path = pt
-    if path and os.path.isdir(path):
-        raise NotImplementedError(f"{path}: orbax directory checkpoints are not read by the port yet "
-                                  "(ROADMAP.md, queue A: Data-parallel)")
+    if path and os.path.isdir(path) and not is_checkpoint_dir(path):
+        raise NotImplementedError(f"{path}: the JAX package's orbax directory checkpoints are not read by the "
+                                  "port (ROADMAP.md, queue A: Data-parallel)")
     if not path or not os.path.exists(path):
         line = f"WARNING: checkpoint {path} not found; using random init" if path else "no checkpoint; random init"
-    elif path.endswith((".pt", ".pth", ".pkl")):
+    elif path.endswith((".pt", ".pth", ".pkl")) or is_checkpoint_dir(path):
         sd, ema = load_torch_weights(path)
         report = import_reference_weights(model, sd)
         line = (f"imported {len(report['loaded'])} tensors; {len(report['missed'])} missed"

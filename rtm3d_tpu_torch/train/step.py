@@ -47,6 +47,7 @@ from rtm3d_tpu_torch.decode.peaks import decode_detections
 from rtm3d_tpu_torch.decode.solve3d import solve_bbox3d
 from rtm3d_tpu_torch.losses.rtm3d_loss import rtm3d_loss
 from rtm3d_tpu_torch.ops.device_warp import device_warp
+from rtm3d_tpu_torch.parallel.dist import all_reduce_sum, world_size
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -171,6 +172,17 @@ def _loss_from_batch(net: nn.Module, cfg: Config, batch: dict, sample_mask=None,
     )
 
 
+def _average_over_ranks(grads, divisor: int) -> None:
+    """Each gradient summed over the ranks and divided by ``divisor``, in
+    place: one ``all_reduce`` of the gradients flattened into one buffer."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    all_reduce_sum(flat).div_(divisor)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+        offset += g.numel()
+
+
 def make_train_step(cfg: Config, device=None) -> Callable:
     """Returns ``train_step(state, batch, image_cache=None) -> (state, metrics)``.
 
@@ -191,6 +203,19 @@ def make_train_step(cfg: Config, device=None) -> Callable:
     gradients of the last update stay in ``p.grad`` until the next call.
     The EMA shadow, when tracked, moves on every call by
     ``d = EMA_DECAY * (1 - exp(-(step + 1) / 2000))`` (module.py:94).
+
+    Under a process group of W > 1 ranks (``parallel/dist.py``) each rank
+    passes its own rows of the global batch, and the step is the JAX
+    step's on the global batch: BatchNorm takes the global batch's
+    statistics, the loss divides by global counts (``rtm3d_loss``), and
+    on the k-th call the gradients are averaged over the ranks by one
+    ``all_reduce`` of a flat buffer (not DDP: that would need
+    ``find_unused_parameters`` for the gradients the forward never makes,
+    ``no_sync`` for accumulation, and a wrapper around the model; with no
+    overlap of the reduction and the backward to gain on one card, one
+    reduction after ``backward`` is the simpler). Every rank then applies
+    the same update to the same parameters, and the metrics are the
+    global batch's on every rank.
     """
     device = resolve_device(device)
     compute_dtype(cfg)  # validate before the first step
@@ -199,6 +224,7 @@ def make_train_step(cfg: Config, device=None) -> Callable:
     def train_step(state, batch, image_cache=None):
         _check_state(state, device)
         net, opt, k = state.model, state.optimizer, state.accumulate_steps
+        ranks = world_size()
         net.train()
         batch = _to_device(batch, device)
         if state.step % k == 0:
@@ -206,12 +232,16 @@ def make_train_step(cfg: Config, device=None) -> Callable:
         loss, aux = _loss_from_batch(net, cfg, batch, image_cache=image_cache)
         loss.backward()
         if (state.step + 1) % k == 0:
+            grads = []
             for group in opt.param_groups:
                 for p in group["params"]:
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
-                    elif k > 1:
+                    elif k > 1 and ranks == 1:
                         p.grad.div_(k)
+                    grads.append(p.grad)
+            if ranks > 1:
+                _average_over_ranks(grads, ranks * k)
             lr = state.schedule(state.updates)  # update t uses the schedule at t
             for group in opt.param_groups:
                 group["lr"] = group["lr_factor"] * lr
@@ -226,9 +256,9 @@ def make_train_step(cfg: Config, device=None) -> Callable:
                 torch._foreach_add_(shadow, [params[n].detach() for n in state.ema], alpha=1.0 - d)
         state.step += 1
         metrics = {
-            "loss": loss.detach(),
+            "loss": aux[4],
             "loss_items": aux,
-            "num_targets": batch["labels"]["mask"].sum(),
+            "num_targets": all_reduce_sum(batch["labels"]["mask"].sum()),
         }
         return state, metrics
 
@@ -241,7 +271,8 @@ def make_eval_loss_step(cfg: Config, device=None) -> Callable:
     shadow when one is tracked (check_point.py:122), BN on its running
     statistics. Rows where ``batch['sample_valid']`` is False, or rows
     ``>= num_valid``, are left out of every sum and count, so a padded
-    final batch scores as its valid rows alone."""
+    final batch scores as its valid rows alone. Under a process group the
+    loss is the global batch's, every rank's valid rows."""
     device = resolve_device(device)
     compute_dtype(cfg)
 
@@ -262,7 +293,7 @@ def make_eval_loss_step(cfg: Config, device=None) -> Callable:
                 loss, aux = _loss_from_batch(net, cfg, batch, sample_mask, state.eval_variables(), image_cache)
         finally:
             net.train(was_training)
-        return {"loss": loss, "loss_items": aux}
+        return {"loss": aux[4], "loss_items": aux}
 
     return eval_step
 
