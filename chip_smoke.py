@@ -8,9 +8,10 @@ With no arguments it drives the port's main paths and checks them, in
 phases of one JSON line each; any failure exits non-zero:
   device   the card (nvidia-smi name and power limit), torch and CUDA versions;
   build    compiles rtm3d_tpu_torch/csrc/*.cu (nvcc, one process per source)
-           and fails if ptxas reports a spill store or load in any kernel;
-           then the host C++ libraries, csrc/geometry.cc (the AP evaluator's
-           overlap) and csrc/preproc.cc (the fused warp) (c++);
+           and fails if ptxas reports a spill store or load in any kernel,
+           or if a conv_s8 kernel's SASS (cuobjdump) holds no warpgroup MMA
+           (GMMA); then the host C++ libraries, csrc/geometry.cc (the AP
+           evaluator's overlap) and csrc/preproc.cc (the fused warp) (c++);
   lm_*     the LM kernel against its plain PyTorch version on the card at
            the detect path's lane counts (M = 25,600 and 38,400 for batch
            128 x top-K 100, the second call's third init being the first
@@ -109,7 +110,10 @@ phases of one JSON line each; any failure exits non-zero:
            kernels, the plain versions, F.unfold + torch._int_mm and
            cuDNN's bf16 conv, and the bound (int8 ops at 1,979 TOP/s or
            bytes at 3.35 TB/s), summed over the 52 convs one served
-           forward runs int8;
+           forward runs int8; each row names the kernel variant its shape
+           takes (ops/int8_conv.py::conv_variant); then ResNet-18's conv
+           shapes that DLA-34 lacks (configs/rtm3d_resnet18_kitti.yaml) at
+           batch 2, bit-equal again, untimed;
   int8_logits  DLA-34 1280x416 b2 under configs/rtm3d_dla34_kitti.yaml
            (fp32, TF32 off), mse scales, the int8 network on the card and
            on the CPU: conv by conv, each int8 conv's own input on the card
@@ -190,15 +194,19 @@ port with this one's instead, on the same card: DIR holds that version's
 ``rtm3d_tpu_torch`` package (from PR 2 on; for example ``git archive <rev>
 rtm3d_tpu_torch | tar -x -C DIR``). Each version runs in a process of its
 own that imports its package and goes through its public wrappers
-(``lm_solve``, ``splat_heatmap``), in turns old, new, new, old: ptxas's
-registers and spills, agreement with the plain versions as above, the LM
-at M = 25,600 (prior 20) and 38,400 (prior 0) with CUDA events, the splat
-at B 32, N 64, C 3, 96x320 with torch.profiler device time (and, to show
-where its time goes, with every slot masked out, beside a PyTorch fill of
-the same output). Then the SASS of each LM kernel's iteration loop by
-opcode (cuobjdump, where the toolkit has it). --check-only runs each
-version once, untimed. A line per record; all of them go to FILE
-(chip_smoke_out/kernel_ab.json).
+(``lm_solve``, ``splat_heatmap``, ``quantize``, ``conv_s8``), in turns
+old, new, new, old: ptxas's registers and spills, agreement with the plain
+versions as above, the LM at M = 25,600 (prior 20) and 38,400 (prior 0)
+with CUDA events, the splat at B 32, N 64, C 3, 96x320 with torch.profiler
+device time (and, to show where its time goes, with every slot masked out,
+beside a PyTorch fill of the same output), and the int8 kernels on each
+distinct conv shape a served DLA-34 forward runs int8, at b32 1280x416 in
+bf16 (each version packs its weights with its own pack_weight and is held
+bit-equal to its own plain versions), with CUDA events, per shape and
+summed over the forward beside the bound. Then the SASS of each LM
+kernel's iteration loop and of each conv kernel by opcode (cuobjdump,
+where the toolkit has it). --check-only runs each version once, untimed.
+A line per record; all of them go to FILE (chip_smoke_out/kernel_ab.json).
 """
 
 from __future__ import annotations
@@ -234,7 +242,7 @@ SPLAT_REPLACES = "rtm3d_tpu/ops/splat.py:26"
 DATA_TRAIN, DATA_TEST, KITTI_HW = 128, 20, (375, 1242)  # frames of the data phase's tree
 KITTI_RECT = [1280, 416]  # IS_RECT's input on KITTI-sized frames
 TRAIN_WARMUP, TRAIN_TIMED, LOSS_FALL_STEPS = 3, 10, 20
-AB_LM_REPS, AB_SPLAT_REPS = 20, 100
+AB_LM_REPS, AB_SPLAT_REPS, AB_INT8_REPS = 20, 100, 10
 DETECT_BATCH = 32  # detect_cli_device: the train split's 128 frames in 4 batches
 # detect_cli_device's vertex head: a car this far ahead (utils/measure.py::
 # cuboid_vertex_bias), centred on the row where the network's peaks fall.
@@ -1248,31 +1256,66 @@ def resnet18_phase(lm, splat, load_config, cli_train, cli_detect, cli_export, cl
             "lm_max_abs_err": max(hh["max_abs_cost_diff_accepted"] for hh in held)}
 
 
-def int8_convs(quant, nn_model, load_config) -> list:
-    """Every conv of full-width DLA-34 under configs/rtm3d_dla34_kitti_tpu.yaml
-    at 1280x416 (a forward on the meta device, calibration's sweep, so the
-    dead projections are in): its shape and whether a serving forward runs
-    it int8 (the dead projections run in no forward, INT8_SKIP's stay float)."""
-    cfg = load_config(os.path.join(CONFIGS, "rtm3d_dla34_kitti_tpu.yaml"))
+def int8_convs(quant, nn_model, load_config, config: str = "rtm3d_dla34_kitti_tpu.yaml") -> list:
+    """Every conv of the full-width network under ``config`` (DLA-34 by
+    default) at 1280x416 (a forward on the meta device, calibration's
+    sweep, so the dead projections are in): its shape and whether a serving
+    forward runs it int8 (``quant.conv_shapes``: the dead projections run in
+    no forward, INT8_SKIP's stay float)."""
+    cfg = load_config(os.path.join(CONFIGS, config))
     cfg.INPUT_SIZE = tuple(KITTI_RECT)
     w, h = KITTI_RECT
     with torch.device("meta"):
         model = nn_model.create_model(cfg).eval()
-    mods = {p: model.get_submodule(n) for n, p in quant.conv_paths(model).items()}
-    shapes, ran = {}, set()
-    quant._sweep(model, [torch.empty(1, h, w, 3, device="meta")], lambda k, x: shapes.setdefault(k, tuple(x.shape)))
-    hooks = [m.register_forward_pre_hook(lambda m, a, k=k: ran.add(k)) for k, m in mods.items()]
-    with torch.no_grad():
-        model(torch.empty(1, 3, h, w, device="meta"))
-    for hk in hooks:
-        hk.remove()
-    skip = quant._match_fns(tuple(cfg.TPU.INT8_SKIP))
-    return [{"key": k, "cin": shapes[k][1], "cout": m.out_channels, "k": m.kernel_size[0], "stride": m.stride[0],
-             "pad": m.padding[0], "dil": m.dilation[0], "h": shapes[k][2], "w": shapes[k][3],
-             "served": k in ran and not skip(k)} for k, m in mods.items()]
+    return quant.conv_shapes(model, h, w, tuple(cfg.TPU.INT8_SKIP))
 
 
-def int8_kernel_phase(int8, convs: list, smi: str) -> dict:
+def int8_shape_groups(convs: list) -> dict:
+    """{(cin, cout, k, stride, pad, dil, h, w): {"convs", "served"}}: the
+    distinct conv shapes of ``convs``, how many convs have each, and how
+    many of those a served forward runs int8."""
+    groups = {}
+    for c in convs:
+        sig = (c["cin"], c["cout"], c["k"], c["stride"], c["pad"], c["dil"], c["h"], c["w"])
+        g = groups.setdefault(sig, {"convs": 0, "served": 0})
+        g["convs"] += 1
+        g["served"] += int(c["served"])
+    return groups
+
+
+def int8_case(int8, sig: tuple, seed: int) -> tuple:
+    """A conv of shape ``sig`` made from ``seed``: the generator, Cp, the
+    int8 weights, packed, out_scale and bias; then the checks at
+    INT8_CHECK_BATCH: quantize and conv_s8 against their plain versions,
+    per-tensor and per-channel scales, fp32 and bf16 inputs, and the
+    scales."""
+    cin, cout, k, stride, pad, dil, h, w = sig
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cp = int8.padded_channels(cin)
+    wq = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, device="cuda", dtype=torch.int8)
+    packed = int8.pack_weight(wq)
+    out_scale = torch.rand(cout, generator=gen, device="cuda") * 1e-3
+    bias = torch.randn(cout, generator=gen, device="cuda")
+    scales = {"per_tensor": torch.full((cin,), 3.0 / 127.0, device="cuda"),
+              "per_channel": torch.rand(cin, generator=gen, device="cuda") * 0.05 + 0.005}
+    x = torch.randn((INT8_CHECK_BATCH, cin, h, w), generator=gen, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    checks = {}
+    for mode, scale in scales.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            q, qr = int8.quantize(xd, scale, cp), int8.quantize_reference(xd, scale, cp)
+            y = int8.conv_s8(q, packed, (k, k), stride, pad, dil, out_scale, bias, dtype)
+            yr = int8.conv_s8_reference(qr, packed, (k, k), stride, pad, dil, out_scale, bias, dtype)
+            torch.cuda.synchronize()
+            checks[f"{mode}_{str(dtype)[6:]}"] = {
+                "quantize_equal": bool(torch.equal(q, qr)), "conv_equal": bool(torch.equal(y, yr)),
+                "quantize_max_abs_err": (q.int() - qr.int()).abs().max().item(),
+                "max_abs_err": (y.float() - yr.float()).abs().max().item(), "finite": bool(torch.isfinite(y).all())}
+    return gen, cp, wq, packed, out_scale, bias, scales, checks
+
+
+def int8_kernel_phase(int8, convs: list, smi: str, check_convs: list = ()) -> dict:
     """quantize and conv_s8 against their plain versions on every distinct
     conv shape of ``convs``, at INT8_CHECK_BATCH, per-tensor and
     per-channel scales, fp32 and bf16 inputs: bit-equal. Then at the detect
@@ -1280,41 +1323,17 @@ def int8_kernel_phase(int8, convs: list, smi: str) -> dict:
     CUDA-event times of the kernels, the
     plain versions, the library yardstick (F.unfold + torch._int_mm) and
     cuDNN's bf16 conv, and the bound, each summed over one served forward
-    (the convs that run int8 there, each as often as it runs)."""
+    (the convs that run int8 there, each as often as it runs). Each row
+    names the kernel variant its shape takes (``conv_variant``). The shapes
+    of ``check_convs`` (ResNet-18's) that ``convs`` lacks are checked at
+    INT8_CHECK_BATCH only, untimed."""
     import torch.nn.functional as F
 
-    groups = {}
-    for c in convs:
-        sig = (c["cin"], c["cout"], c["k"], c["stride"], c["pad"], c["dil"], c["h"], c["w"])
-        g = groups.setdefault(sig, {"convs": 0, "served": 0})
-        g["convs"] += 1
-        g["served"] += int(c["served"])
+    groups = int8_shape_groups(convs)
     rows, failed = [], []
     for i, (sig, g) in enumerate(groups.items()):
         cin, cout, k, stride, pad, dil, h, w = sig
-        gen = torch.Generator(device="cuda").manual_seed(100 + i)
-        cp = int8.padded_channels(cin)
-        wq = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, device="cuda", dtype=torch.int8)
-        packed = int8.pack_weight(wq)
-        out_scale = torch.rand(cout, generator=gen, device="cuda") * 1e-3
-        bias = torch.randn(cout, generator=gen, device="cuda")
-        scales = {"per_tensor": torch.full((cin,), 3.0 / 127.0, device="cuda"),
-                  "per_channel": torch.rand(cin, generator=gen, device="cuda") * 0.05 + 0.005}
-        x = torch.randn((INT8_CHECK_BATCH, cin, h, w), generator=gen, device="cuda").contiguous(
-            memory_format=torch.channels_last)
-        checks = {}
-        for mode, scale in scales.items():
-            for dtype in (torch.float32, torch.bfloat16):
-                xd = x.to(dtype)
-                q, qr = int8.quantize(xd, scale, cp), int8.quantize_reference(xd, scale, cp)
-                y = int8.conv_s8(q, packed, (k, k), stride, pad, dil, out_scale, bias, dtype)
-                yr = int8.conv_s8_reference(qr, packed, (k, k), stride, pad, dil, out_scale, bias, dtype)
-                torch.cuda.synchronize()
-                checks[f"{mode}_{str(dtype)[6:]}"] = {
-                    "quantize_equal": bool(torch.equal(q, qr)), "conv_equal": bool(torch.equal(y, yr)),
-                    "quantize_max_abs_err": (q.int() - qr.int()).abs().max().item(),
-                    "max_abs_err": (y.float() - yr.float()).abs().max().item(), "finite": bool(torch.isfinite(y).all())}
-        del x, xd, q, qr, y, yr
+        gen, cp, wq, packed, out_scale, bias, scales, checks = int8_case(int8, sig, 100 + i)
         # times at the detect batch, bf16 as served, per-tensor scale
         xb = torch.randn((DETECT_BATCH, cin, h, w), generator=gen, device="cuda", dtype=torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
@@ -1342,8 +1361,9 @@ def int8_kernel_phase(int8, convs: list, smi: str) -> dict:
         ops = int8.conv_s8_ops(DETECT_BATCH, cin, h, w, cout, (k, k), stride, pad, dil)
         nbytes = int8.conv_s8_bytes(DETECT_BATCH, cin, h, w, cout, (k, k), stride, pad, dil, 2)
         qbytes = int8.quantize_bytes(DETECT_BATCH, cin, h, w, 2)
+        variant = int8.conv_variant(DETECT_BATCH, h, w, cp, cout, (k, k), stride, pad, dil, packed.shape[1])
         row = {"cin": cin, "cout": cout, "k": k, "stride": stride, "pad": pad, "dil": dil, "hw": [h, w],
-               "convs": g["convs"], "served_per_forward": g["served"], "checks": checks, **t,
+               "variant": variant["name"], "convs": g["convs"], "served_per_forward": g["served"], "checks": checks, **t,
                "ops": ops, "bytes": nbytes, "conv_bound_ms": max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3,
                "conv_bound_by": "operations" if ops / PEAK_INT8_OPS > nbytes / PEAK_BYTES else "bytes",
                "quantize_bytes": qbytes, "quantize_bound_ms": qbytes / PEAK_BYTES * 1e3}
@@ -1352,6 +1372,16 @@ def int8_kernel_phase(int8, convs: list, smi: str) -> dict:
         if not all(c["quantize_equal"] and c["conv_equal"] and c["finite"] for c in checks.values()):
             failed.append(row)
         del xb, qb, wb, conv, plain
+        torch.cuda.empty_cache()
+    extra = []
+    for i, sig in enumerate(s for s in int8_shape_groups(check_convs) if s not in groups):
+        cin, cout, k, stride, pad, dil, h, w = sig
+        _, cp, _, packed, _, _, _, checks = int8_case(int8, sig, 200 + i)
+        variant = int8.conv_variant(INT8_CHECK_BATCH, h, w, cp, cout, (k, k), stride, pad, dil, packed.shape[1])
+        extra.append({"cin": cin, "cout": cout, "k": k, "stride": stride, "pad": pad, "dil": dil, "hw": [h, w],
+                      "variant": variant["name"], "checks": checks})
+        if not all(c["quantize_equal"] and c["conv_equal"] and c["finite"] for c in checks.values()):
+            failed.append(extra[-1])
         torch.cuda.empty_cache()
 
     def total(key):
@@ -1365,9 +1395,9 @@ def int8_kernel_phase(int8, convs: list, smi: str) -> dict:
            "forward": {k: total(k) for k in ("quantize_ms", "conv_ms", "plain_quantize_ms", "plain_conv_ms",
                                              "library_ms", "cudnn_bf16_ms", "conv_bound_ms", "quantize_bound_ms")},
            "forward_conv_bound_by": "operations" if ops_bound > bytes_bound else "bytes",
-           "max_abs_err": max(c["max_abs_err"] for r in rows for c in r["checks"].values()),
-           "quantize_max_abs_err": max(c["quantize_max_abs_err"] for r in rows for c in r["checks"].values()),
-           "rows": rows}
+           "max_abs_err": max(c["max_abs_err"] for r in rows + extra for c in r["checks"].values()),
+           "quantize_max_abs_err": max(c["quantize_max_abs_err"] for r in rows + extra for c in r["checks"].values()),
+           "rows": rows, "checked_only": {"model": "ResNet-18 rtm3d_resnet18_kitti.yaml", "shapes": extra}}
     emit("int8_kernel", **rec)
     if failed:
         raise AssertionError(f"int8_kernel: a kernel disagrees with its plain version: {failed}")
@@ -2153,10 +2183,54 @@ def ptxas_lines(log: str) -> list:
     return [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
 
 
-def ab_worker(root: str, timed: bool) -> None:
+def int8_ab_rows(int8, shapes: list, timed: bool) -> list:
+    """--kernel-ab's int8 kernels of one version (``int8``, its
+    ``ops.int8_conv``): each served conv shape at the detect batch in bf16
+    with a per-tensor scale, weights packed by the version's own
+    ``pack_weight``, the same seeded inputs in every turn; ``quantize`` and
+    ``conv_s8`` held bit-equal to the version's plain versions and, if
+    ``timed``, CUDA-event times."""
+    rows = []
+    for i, sh in enumerate(shapes):
+        cin, cout, k, stride, pad, dil, h, w = (sh[key] for key in ("cin", "cout", "k", "stride", "pad", "dil", "h", "w"))
+        gen = torch.Generator(device="cuda").manual_seed(300 + i)
+        cp = int8.padded_channels(cin)
+        wq = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, device="cuda", dtype=torch.int8)
+        packed = int8.pack_weight(wq)
+        out_scale = torch.rand(cout, generator=gen, device="cuda") * 1e-3
+        bias = torch.randn(cout, generator=gen, device="cuda")
+        scale = torch.full((cin,), 3.0 / 127.0, device="cuda")
+        xb = torch.randn((DETECT_BATCH, cin, h, w), generator=gen, device="cuda", dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        quantize = functools.partial(int8.quantize, xb, scale, cp)
+        q = quantize()
+        conv = functools.partial(int8.conv_s8, q, packed, (k, k), stride, pad, dil, out_scale, bias, torch.bfloat16)
+        y = conv()
+        torch.cuda.synchronize()
+        row = {"cin": cin, "cout": cout, "k": k, "stride": stride, "pad": pad, "dil": dil, "hw": [h, w],
+               "served_per_forward": sh["served"],
+               "quantize_equal": bool(torch.equal(q, int8.quantize_reference(xb, scale, cp))),
+               "conv_equal": bool(torch.equal(y, int8.conv_s8_reference(q, packed, (k, k), stride, pad, dil,
+                                                                        out_scale, bias, torch.bfloat16)))}
+        if hasattr(int8, "conv_variant"):
+            row["variant"] = int8.conv_variant(DETECT_BATCH, h, w, cp, cout, (k, k), stride, pad, dil,
+                                               packed.shape[1])["name"]
+        del y
+        if timed:
+            row["quantize_ms"] = cuda_time_ms(quantize, AB_INT8_REPS, 2)
+            row["conv_ms"] = cuda_time_ms(conv, AB_INT8_REPS, 2)
+        rows.append(row)
+        del xb, q, conv, quantize, packed, wq
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ab_worker(root: str, timed: bool, int8_shapes: str | None = None) -> None:
     """One turn of --kernel-ab: the kernels of the ``rtm3d_tpu_torch`` package
     under ``root``, built, checked against their plain versions at the main
-    paths' shapes and, if ``timed``, timed; one JSON line."""
+    paths' shapes and, if ``timed``, timed; the int8 kernels at the served
+    conv shapes listed in the JSON file ``int8_shapes`` (``int8_ab_rows``);
+    one JSON line."""
     # this script's own package came in with the shared helpers; the turn
     # imports the version under test in its place
     for name in [k for k in sys.modules if k.split(".")[0] == "rtm3d_tpu_torch"]:
@@ -2205,31 +2279,45 @@ def ab_worker(root: str, timed: bool) -> None:
                                  "splat_kernel"),
                                 ("fill_ms", lambda: out.fill_(0.5), "elementwise")):
             rec[key], rec["timed_by"][key] = kernel_device_ms(fn, AB_SPLAT_REPS, kernel)
+    if int8_shapes:
+        from rtm3d_tpu_torch.ops import int8_conv as int8
+
+        with open(int8_shapes) as f:
+            rec["int8"] = int8_ab_rows(int8, json.load(f), timed)
     print(json.dumps(rec), flush=True)
+
+
+def sass_functions(lib: str, kernel: str) -> dict:
+    """Per function of ``lib`` whose name holds ``kernel``: its SASS
+    instructions as (address, opcode, operands), from cuobjdump; None where
+    the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", line)
+        if name and m:
+            funcs[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return funcs
 
 
 def sass_loop_counts(lib: str, kernel: str) -> dict:
     """Per function whose name holds ``kernel``: its SASS instruction count
     and, over the span of its widest backward branch (the iteration loop),
     the count by opcode."""
-    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.isfile(tool):
+    funcs = sass_functions(lib, kernel)
+    if funcs is None:
         return {"cuobjdump": "not found"}
-    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
-    funcs, name = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            funcs[name] = []
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", line)
-        if name and m:
-            funcs[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
     out = {}
     for fn, ins in funcs.items():
-        if kernel not in fn:
-            continue
         loops = []
         for addr, op, rest in ins:
             t = re.search(r"0x([0-9a-f]+)", rest)
@@ -2248,9 +2336,71 @@ def sass_loop_counts(lib: str, kernel: str) -> dict:
     return out
 
 
+def sass_opcodes(lib: str, kernel: str) -> dict:
+    """Per function whose name holds ``kernel``: its SASS instructions by
+    opcode."""
+    funcs = sass_functions(lib, kernel)
+    if funcs is None:
+        return {"cuobjdump": "not found"}
+    out = {}
+    for fn, ins in funcs.items():
+        by_op = {}
+        for _, op, _ in ins:
+            by_op[op.split(".")[0]] = by_op.get(op.split(".")[0], 0) + 1
+        out[fn] = dict(sorted(by_op.items(), key=lambda kv: -kv[1]))
+    return out
+
+
+def gmma_counts(lib: str) -> dict:
+    """The warpgroup MMA instructions (``*GMMA``) in each conv kernel of the
+    int8 library's SASS."""
+    ops = sass_opcodes(lib, "conv_s8_kernel")
+    if "cuobjdump" in ops:
+        return ops
+    return {fn: sum(n for op, n in counts.items() if op.endswith("GMMA")) for fn, counts in ops.items()}
+
+
+def int8_ab_times(turns: list, smi: str) -> dict:
+    """One version's int8 rows over its turns: per shape the mean ms, TOP/s
+    and share of the bound of ``conv_s8``, ``quantize``'s ms against its
+    bound, and the sums over one served forward."""
+    from rtm3d_tpu_torch.ops import int8_conv as int8
+
+    rows = []
+    for i, r in enumerate(turns[0]["int8"]):
+        h, w = r["hw"]
+        args = (DETECT_BATCH, r["cin"], h, w, r["cout"], (r["k"], r["k"]), r["stride"], r["pad"], r["dil"])
+        ops, nbytes = int8.conv_s8_ops(*args), int8.conv_s8_bytes(*args, 2)
+        bound = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3
+        conv_ms = float(np.mean([t["int8"][i]["conv_ms"] for t in turns]))
+        q_ms = float(np.mean([t["int8"][i]["quantize_ms"] for t in turns]))
+        q_bound = int8.quantize_bytes(DETECT_BATCH, r["cin"], h, w, 2) / PEAK_BYTES * 1e3
+        rows.append({key: r[key] for key in ("cin", "cout", "k", "stride", "pad", "dil", "hw", "served_per_forward")}
+                    | {"variant": r.get("variant"), "conv_ms": conv_ms, "conv_runs_ms": [t["int8"][i]["conv_ms"] for t in turns],
+                       "conv_tops": ops / conv_ms / 1e9, "conv_bound_ms": bound, "conv_bound_share": bound / conv_ms,
+                       "conv_bound_by": "operations" if ops / PEAK_INT8_OPS > nbytes / PEAK_BYTES else "bytes",
+                       "quantize_ms": q_ms, "quantize_bound_ms": q_bound, "quantize_bound_share": q_bound / q_ms})
+
+    def total(key):
+        return sum(r[key] * r["served_per_forward"] for r in rows)
+
+    return {"nvidia_smi": smi, "conv_forward_ms": total("conv_ms"), "conv_forward_bound_ms": total("conv_bound_ms"),
+            "quantize_forward_ms": total("quantize_ms"), "quantize_forward_bound_ms": total("quantize_bound_ms"),
+            "conv_forward_runs_ms": [sum(t["int8"][i]["conv_ms"] * r["served_per_forward"] for i, r in enumerate(rows))
+                                     for t in turns],
+            "quantize_forward_runs_ms": [sum(t["int8"][i]["quantize_ms"] * r["served_per_forward"]
+                                             for i, r in enumerate(rows)) for t in turns],
+            "rows": rows}
+
+
 def kernel_ab(old_root: str, check_only: bool, out_path: str) -> int:
     """--kernel-ab: the package under ``old_root`` against this one, each
-    turn in a process of its own; fails if either version fails a gate."""
+    turn in a process of its own; fails if either version fails a gate. A
+    turn that fails is reported and the others still run, so one version's
+    numbers survive the other's fault."""
+    from rtm3d_tpu_torch import load_config
+    from rtm3d_tpu_torch.nn import model as nn_model
+    from rtm3d_tpu_torch.nn import quant
     from rtm3d_tpu_torch.ops import lm_solver as lm
     from rtm3d_tpu_torch.ops import splat
 
@@ -2263,31 +2413,48 @@ def kernel_ab(old_root: str, check_only: bool, out_path: str) -> int:
 
     smi = nvidia_smi()
     record("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    # the int8 kernels at the distinct conv shapes one served DLA-34 forward runs int8
+    keys = ("cin", "cout", "k", "stride", "pad", "dil", "h", "w")
+    shapes = [dict(zip(keys, sig), served=g["served"])
+              for sig, g in int8_shape_groups(int8_convs(quant, nn_model, load_config)).items() if g["served"]]
+    shapes_path = os.path.join(os.path.dirname(out_path) or ".", "int8_ab_shapes.json")
+    os.makedirs(os.path.dirname(shapes_path) or ".", exist_ok=True)
+    with open(shapes_path, "w") as f:
+        json.dump(shapes, f)
+    failed = []
     for tag in ("old", "new") if check_only else ("old", "new", "new", "old"):
-        cmd = [sys.executable, os.path.abspath(__file__), "--ab-worker", roots[tag]] + ([] if check_only else ["--timed"])
+        cmd = ([sys.executable, os.path.abspath(__file__), "--ab-worker", roots[tag], "--int8-shapes", shapes_path]
+               + ([] if check_only else ["--timed"]))
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-            raise RuntimeError(f"kernel-ab: the {tag} turn exited {proc.returncode}")
+            print(proc.stdout[-4000:] + proc.stderr[-8000:], file=sys.stderr)
+            record("turn_failed", version=tag, returncode=proc.returncode)
+            failed.append((tag, "exited", proc.returncode))
+            continue
         runs[tag].append(json.loads(proc.stdout.strip().splitlines()[-1]))
         record("turn", version=tag, **runs[tag][-1])
-    failed = []
     # a profiler time and a CUDA-graph time (which holds the gaps between
     # launches) are not compared
     sources = sorted({src for turns in runs.values() for t in turns for src in t.get("timed_by", {}).values()})
     if len(sources) > 1:
         failed.append(("timed_by", sources))
     for tag, turns in runs.items():
+        if not turns:
+            continue
         first = turns[0]
-        record("sass", version=tag, lm_solver=sass_loop_counts(first["libraries"]["lm_solver"], "lm_kernel"))
+        record("sass", version=tag, lm_solver=sass_loop_counts(first["libraries"]["lm_solver"], "lm_kernel"),
+               int8_conv=sass_opcodes(first["libraries"]["int8_conv"], "conv_s8_kernel"))
         for t in turns:
+            for r in t["int8"]:
+                if not (r["quantize_equal"] and r["conv_equal"]):
+                    failed.append((tag, "int8", r))
             for e in t["lm"]:
                 if not e["finite"] or e["accept_agreement"] < 0.999 or e["cost_within_1e-3"] < 0.999:
                     failed.append((tag, e))
             for name in ("splat_train_shape", "splat_edge"):
                 if t[name]["max_abs_err"] > 1e-6 or not t[name]["ones_equal"]:
                     failed.append((tag, name, t[name]))
-        if check_only or len(sources) > 1:
+        if check_only or len(sources) > 1 or len(turns) < 2:
             continue
         lm_ms = [float(np.mean([t["lm"][i]["ms"] for t in turns])) for i in range(2)]
         lm_bound = [lm.lm_flops(e["M"], ITERS, e["prior_weight"]) / PEAK_FP32_FLOPS * 1e3 for e in first["lm"]]
@@ -2300,6 +2467,7 @@ def kernel_ab(old_root: str, check_only: bool, out_path: str) -> int:
                splat_ms=mean("splat_ms"), splat_runs_ms=[t["splat_ms"] for t in turns],
                splat_bound_ms=splat_bound, splat_over_bound=mean("splat_ms") / splat_bound,
                splat_no_live_slot_ms=mean("splat_no_live_slot_ms"), fill_ms=mean("fill_ms"))
+        record("int8_times", version=tag, **int8_ab_times(turns, smi))
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(records, f, indent=1)
@@ -2334,12 +2502,13 @@ def main() -> int:
     ap.add_argument("--out", default="chip_smoke_out/kernel_ab.json", help="with --kernel-ab: the records")
     ap.add_argument("--ab-worker", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--timed", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--int8-shapes", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     if args.ab_worker:
-        ab_worker(args.ab_worker, args.timed)
+        ab_worker(args.ab_worker, args.timed, args.int8_shapes)
         return 0
     if args.kernel_ab:
         return kernel_ab(args.kernel_ab, args.check_only, args.out)
@@ -2392,6 +2561,11 @@ def main() -> int:
         raise AssertionError(f"build: a kernel's ptxas report is missing: {ptxas}")
     if any(spills.values()):
         raise AssertionError(f"build: ptxas reports spills: {spills}")
+    # conv_s8 runs on the warpgroup MMA: every conv kernel's SASS holds GMMA instructions
+    gmma = gmma_counts(str(built["int8_conv"]["path"]))
+    emit("build_sass", int8_conv_gmma=gmma)
+    if not gmma or not all(isinstance(n, int) and n > 0 for n in gmma.values()):
+        raise AssertionError(f"build: a conv_s8 kernel without warpgroup MMA (GMMA) in its SASS: {gmma}")
     phase_done("build")
 
     cfg = default_config()
@@ -2429,7 +2603,7 @@ def main() -> int:
     resnet = resnet18_phase(lm, splat, load_config, cli_train, cli_detect, cli_export, cli_stats, tree, smi)
     phase_done("resnet18")
     convs = int8_convs(quant, nn_model, load_config)
-    int8_kernels = int8_kernel_phase(int8, convs, smi)
+    int8_kernels = int8_kernel_phase(int8, convs, smi, int8_convs(quant, nn_model, load_config, RESNET_CONFIG))
     phase_done("int8_kernel")
     int8_logits_phase(int8, quant, nn_model, load_config, step_mod.normalize_images, smi)
     phase_done("int8_logits")

@@ -178,6 +178,33 @@ def _sweep(model: nn.Module, batches, stat) -> None:
             h.remove()
 
 
+def conv_shapes(model: nn.Module, h: int, w: int, skip: Iterable[str] = ()) -> List[dict]:
+    """Every conv of ``model`` (best built on the meta device) at an (h, w)
+    input, from calibration's sweep, so DLA-34's dead projections are in:
+    its JAX path ``key``, ``cin``, ``cout``, ``k``, ``stride``, ``pad``,
+    ``dil``, its input's ``h`` and ``w``, and ``served``: whether a serving
+    forward runs it int8 (the dead projections run in no forward; the convs
+    ``skip`` matches, ``_match_fns`` rules, stay float)."""
+    device = next(model.parameters()).device
+    mods = {p: model.get_submodule(n) for n, p in conv_paths(model).items()}
+    shapes, ran = {}, set()
+    _sweep(model, [torch.empty(1, h, w, 3, device=device)], lambda k, x: shapes.setdefault(k, tuple(x.shape)))
+    hooks = [m.register_forward_pre_hook(lambda m, a, k=k: ran.add(k)) for k, m in mods.items()]
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(torch.empty(1, 3, h, w, device=device))
+    finally:
+        model.train(was_training)
+        for hk in hooks:
+            hk.remove()
+    hit = _match_fns(tuple(skip))
+    return [{"key": k, "cin": shapes[k][1], "cout": m.out_channels, "k": m.kernel_size[0], "stride": m.stride[0],
+             "pad": m.padding[0], "dil": m.dilation[0], "h": shapes[k][2], "w": shapes[k][3],
+             "served": k in ran and not hit(k)} for k, m in mods.items()]
+
+
 def calibrate_act_scales(model: nn.Module, batches, method: str = "absmax", per_channel: Iterable[str] = (),
                          mse_grid: int = 16) -> Dict[str, object]:
     """Activation clips of every conv over ``batches`` ((B, H, W, 3) float

@@ -8,7 +8,7 @@ device, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_int8.py -q
 
-Without a device every test skips with its reason.
+Without a device every test that launches a kernel skips with its reason.
 """
 
 import copy
@@ -33,9 +33,16 @@ def cuda():
     return torch.device("cuda")
 
 
-# (cin, cout, k, stride, dilation, h, w): the stem (cin 3), a cout-3 head,
-# strided and dilated 3x3s, a 1x1 on a ragged pixel count, cin 16 (K = 144,
-# not a multiple of 32), cout not a multiple of the tile
+# (cin, cout, k, stride, dilation, h, w), pad = dilation * (k - 1) // 2: the
+# stem (cin 3), a cout-3 head, strided and dilated 3x3s, a 1x1 on a ragged
+# pixel count, cin 16 (K = 144, not a multiple of 32), cout not a multiple
+# of the tile; then a shape for each variant of conv_s8 (conv_variant) and
+# its edges: the tma load at every N tile (16 to 256, Cout 512 in two N
+# tiles), with Wo no multiple of the tile's width and Ho no multiple of its
+# rows, and the dilation-6 pad-6 header conv; gather16 at every N tile, a
+# ragged M tail, Cin 320 and 448 (K chunks across taps, a last chunk of 64
+# bytes); ResNet-18's 7x7 stride-2 stem (gather4, Cin 3, N tile 64) and its
+# 1x1 stride-2 downsample
 SHAPES = [
     (3, 16, 7, 1, 1, 37, 61),
     (256, 3, 1, 1, 1, 13, 40),
@@ -44,6 +51,17 @@ SHAPES = [
     (128, 256, 1, 1, 1, 7, 9),
     (16, 16, 3, 1, 1, 11, 13),
     (32, 96, 3, 1, 1, 9, 17),
+    (128, 32, 3, 1, 1, 9, 20),
+    (128, 64, 3, 1, 1, 10, 37),
+    (128, 96, 3, 1, 1, 10, 21),
+    (256, 256, 3, 1, 6, 26, 40),
+    (512, 512, 3, 1, 1, 7, 11),
+    (64, 64, 3, 1, 1, 11, 13),
+    (320, 64, 3, 1, 1, 6, 10),
+    (448, 128, 1, 1, 1, 9, 15),
+    (128, 256, 3, 2, 1, 12, 19),
+    (3, 64, 7, 2, 1, 45, 67),
+    (64, 128, 1, 2, 1, 21, 33),
 ]
 
 
@@ -86,6 +104,20 @@ def test_kernels_bit_equal_to_plain(cuda, shape, dtype):
     assert torch.equal(got.cpu(), want)
 
 
+def test_every_variant_is_taken():
+    """SHAPES reach every load of conv_variant and every N tile of each (no
+    card needed: the choice is the wrapper's)."""
+    taken = set()
+    for cin, cout, k, stride, dil, h, w in SHAPES:
+        cp = int8_conv.padded_channels(cin)
+        v = int8_conv.conv_variant(2, h, w, cp, cout, (k, k), stride, dil * (k - 1) // 2, dil,
+                                   int8_conv.padded_taps(k * k * cp))
+        taken.add((v["load"], v["bn"]))
+    assert {(ld, bn) for ld, bn in taken if ld != "gather4"} == {
+        (ld, bn) for ld in ("tma", "gather16") for bn in int8_conv.N_TILES}
+    assert {bn for ld, bn in taken if ld == "gather4"} == {16, 64}
+
+
 @pytest.mark.cuda
 def test_quantize_rounds_half_to_even_and_clips(cuda):
     x = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, 300.0, -300.0, 126.5, -126.5, 0.0, 1e30, -1e30],
@@ -109,6 +141,36 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         int8_conv.conv_s8(xq, packed, (3, 3), 1, 1, 1, out_scale.to(cuda), None, torch.float16)
     with pytest.raises(ValueError):
         int8_conv.conv_s8(xq, packed.cpu(), (3, 3), 1, 1, 1, out_scale.to(cuda), None, torch.float32)
+
+
+@pytest.mark.cuda
+def test_conv_raises_on_a_shape_no_variant_takes_and_on_a_refused_launch(cuda):
+    """No fallback: an input of 2^31 bytes (past the kernels' 32-bit
+    offsets) raises ValueError before any launch; an input the launch
+    refuses (not 16-byte aligned: TMA and cp.async need it) raises
+    RuntimeError; neither counts a launch. The variant's shared memory is
+    the library's own."""
+    lib = int8_conv._library()
+    for bn in int8_conv.N_TILES:
+        for code, itemsize in ((0, 4), (1, 2)):
+            v = int8_conv.conv_variant(1, 8, 8, 16, bn, (1, 1), 1, 0, 1, 32, itemsize)
+            assert v["smem"] == lib.int8_conv_smem_bytes(bn, code) <= int8_conv.SMEM_LIMIT
+    c0 = int8_conv.conv_s8.launches
+    big = torch.empty((1, 16384, 32768, 4), dtype=torch.int8, device=cuda)
+    w4 = int8_conv.pack_weight(torch.ones((16, 3, 1, 1), dtype=torch.int8)).to(cuda)
+    ones = torch.ones(16, device=cuda)
+    with pytest.raises(ValueError, match="no kernel variant"):
+        int8_conv.conv_s8(big, w4, (1, 1), 1, 0, 1, ones, None, torch.bfloat16)
+    del big
+    for cin, k in ((128, 3), (16, 3), (3, 7)):  # tma, gather16, gather4
+        cp = int8_conv.padded_channels(cin)
+        flat = torch.zeros(2 * 9 * 11 * cp + 16, dtype=torch.int8, device=cuda)
+        xq = flat[1:1 + 2 * 9 * 11 * cp].view(2, 9, 11, cp)
+        assert xq.is_contiguous() and xq.data_ptr() % 16
+        wq = int8_conv.pack_weight(torch.ones((16, cin, k, k), dtype=torch.int8)).to(cuda)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            int8_conv.conv_s8(xq, wq, (k, k), 1, k // 2, 1, ones, None, torch.float32)
+    assert int8_conv.conv_s8.launches == c0
 
 
 @pytest.mark.cuda
