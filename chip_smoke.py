@@ -51,6 +51,22 @@ phases of one JSON line each; any failure exits non-zero:
            peak memory;
   train_profile  torch.profiler over two train steps, the table to
            chip_smoke_out/train_profile.json;
+  remat    TPU.REMAT (nn/layers.py::remat_segment): remat_check, one DLA-34
+           384x128 b2 fp32 step with REMAT against the same step without,
+           TF32 off and deterministic algorithms, the loss, aux and each
+           gradient within REMAT_GATE_REL; then the train phase's config
+           and shape with REMAT, 10 timed steps: ms a step and peak memory
+           beside the train phase's, one splat launch a step, and the peak
+           below the train phase's;
+  bench    python -m rtm3d_tpu_torch.tools.bench (DLA-34 1280x384 b128
+           bf16, images/s) and --b1 (p50 ms of 30 batch-1 calls), each
+           tool's JSON line as it prints it: 2 LM launches a call, finite
+           outputs;
+  latency  python -m rtm3d_tpu_torch.tools.bench_latency: DLA-34 bf16 at b1,
+           8 and 32, the same with --int8, ResNet-18 fp32 at b1 and 8, 30
+           calls each, p50/p90/p99 from CUDA events (reports to
+           chip_smoke_out/latency_*.json): 2 LM launches a call, and 52
+           quantize and conv_s8 launches an int8 call;
   data     training from files through ``python -m rtm3d_tpu_torch.cli.train``
            (``cli.train.main``, in this process): the port's generator
            writes a KITTI-layout tree of 128 train and 20 test frames of
@@ -139,6 +155,20 @@ phases of one JSON line each; any failure exits non-zero:
            and with IS_MOSAIC (on 4 loader workers): finite losses, one
            splat launch a step and eval batch, host ms a batch and wall
            img/s beside the cv2 run's;
+  bench_train  python -m rtm3d_tpu_torch.tools.bench_train: step-only b32
+           bf16, step-only b16 fp32 and --e2e on the data phase's tree at
+           b16 with 4 loader workers (1280x416): one splat launch a step;
+  real_parity  python -m rtm3d_tpu_torch.tools.real_parity, a dry run on the
+           data phase's 20 test frames at min overlap 0.3 and min height
+           0, with detect_cli_device's weights, top-K REAL_PARITY_TOPK,
+           the int8 leg and a bootstrap (the report to chip_smoke_out/
+           real_parity.json): 20 files and accepted detections on each
+           leg, 27 cells on each grid, 2 LM launches a batch, 52 of each
+           int8 kernel an int8 batch; each cell's port-minus-reference
+           delta within REAL_PARITY_DELTA; the port's and the reference's
+           lines, each way, with the same boxes and scores
+           (REAL_PARITY_GATE); each leg's 3D boxes reprojected onto its 2D
+           boxes within REAL_PARITY_GATE's reproj_px;
   resnet18 configs/rtm3d_resnet18_kitti.yaml as shipped (fp32, TF32 off,
            IS_RECT, so 1280x416 on these frames; pretrained with no file)
            on the data phase's tree: resnet18_train, cli.train.main for 1
@@ -231,8 +261,8 @@ from torch.utils.flop_counter import FlopCounterMode
 from rtm3d_tpu_torch.utils.measure import (
     BATCH, FRAME_H, FRAME_W, ITERS, K_KITTI, PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS, PEAK_INT8_OPS, TOPK,
     TRAIN_BATCH, TRAIN_OBJS, compare_result_dirs, cuboid_vertex_bias, cuda_time_ms, graph_device_ms, int_mm_conv,
-    kernel_device_ms, lm_agreement, nvidia_smi, splat_edge_inputs, state_tensors, synthetic_labels, synthetic_lanes,
-    unequal,
+    kernel_device_ms, lm_agreement, nvidia_smi, reprojection_px, splat_edge_inputs, state_tensors, synthetic_labels,
+    synthetic_lanes, unequal,
 )
 
 H, W = FRAME_H, FRAME_W
@@ -573,6 +603,19 @@ def train_fp32_phase(cfg_base, nn_model, step_mod, state_mod) -> None:
         raise AssertionError(f"train step on the GPU disagrees with the CPU: {rec}")
 
 
+def train_batches() -> list:
+    """The train and remat phases' distinct synthetic batches on the card:
+    uint8 frames and label blocks (a quarter of the slots masked, a tenth
+    noise), seeded."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rng = np.random.RandomState(4)
+    return [
+        {"image": torch.randint(0, 256, (TRAIN_BATCH, H, W, 3), dtype=torch.uint8, device="cuda", generator=gen),
+         "labels": {k: v.cuda() for k, v in synthetic_labels(rng, TRAIN_BATCH, TRAIN_OBJS).items()}}
+        for _ in range(TRAIN_WARMUP + TRAIN_TIMED)
+    ]
+
+
 def train_phase(nn_model, step_mod, state_mod, load_config, lm, splat) -> dict:
     """configs/rtm3d_dla34_kitti_tpu.yaml at full width on distinct synthetic
     batches, then the loss-falls check on one repeated batch."""
@@ -583,13 +626,7 @@ def train_phase(nn_model, step_mod, state_mod, load_config, lm, splat) -> dict:
     # longest side to 1280, each side up to a multiple of 32): the data phase
     cfg.INPUT_SIZE = (W, H)
     cfg.BATCH_SIZE, cfg.DATASET.MAX_OBJS = TRAIN_BATCH, TRAIN_OBJS  # the file's 32 and the default 64
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    rng = np.random.RandomState(4)
-    batches = [
-        {"image": torch.randint(0, 256, (TRAIN_BATCH, H, W, 3), dtype=torch.uint8, device="cuda", generator=gen),
-         "labels": {k: v.cuda() for k, v in synthetic_labels(rng, TRAIN_BATCH, TRAIN_OBJS).items()}}
-        for _ in range(TRAIN_WARMUP + TRAIN_TIMED)
-    ]
+    batches = train_batches()
     model = nn_model.create_model(cfg, torch.Generator().manual_seed(0))
     state = state_mod.TrainState.create(model, cfg, device="cuda")
     step = step_mod.make_train_step(cfg, device="cuda")
@@ -1755,6 +1792,253 @@ def host_variants_phase(splat, load_config, cli_train, tree: str, cv2_rec: dict)
     return recs
 
 
+# -- TPU.REMAT, and the port's own tools (rtm3d_tpu_torch/tools/) --
+REMAT_CHECK_HW, REMAT_CHECK_BATCH = (384, 128), 2  # remat_check: train_fp32's frame and batch
+REMAT_GATE_REL = 1e-6  # remat_check: losses and each gradient, REMAT against none, TF32 off, deterministic
+LATENCY_ITERS = 30
+# real_parity: the reference leg solves each detection with scipy on the
+# host, so top-K bounds its seconds: at the tool's default of 100 the leg
+# took 55.2 and 60.2 s of host time on the card's machine, over the 60 s
+# this phase may spend on it (PERF.md); 50 halves its solves
+REAL_PARITY_TOPK, REAL_PARITY_BATCH, REAL_PARITY_BOOTSTRAP = 50, 8, 50
+# the dry run's bars, as tests/test_torch_real_parity.py scores its tree:
+# the devkit's bars leave every cell of synthetic frames at 0
+REAL_PARITY_BARS = {"min_overlap": 0.3, "min_height": 0.0}
+# |port - reference| in AP points a cell: tests/test_ap_parity.py's bound
+# for the same weights through two serving stacks
+REAL_PARITY_DELTA = 5.0
+# real_parity: each leg's lines matched to the other's line of its frame
+# and class with the nearest 2D box (compare_result_dirs). The legs share
+# the network, the pixels and the decode, so a shared detection's box and
+# score agree to the format's last digit; they differ in the solver, whose
+# residual decides acceptance, so a line near RESIDUAL_THRESH may be on one
+# leg only. Each leg's 3D boxes reproject onto their 2D boxes (the decoded
+# vertices) within reproj_px: the scipy objective has no dimension prior,
+# so its box may be the LM's at another scale (tests/test_detect_parity.py
+# holds the two solvers alike only up to that scale); the fit to the
+# vertices is what both must give. On KITTI's geometry the format's two
+# decimals move a label's corners by up to 0.73 px, a yaw 0.05 rad off by
+# 8.8 px (tests/test_torch_real_parity.py).
+REAL_PARITY_GATE = {"box_agree_share": 0.9, "score": 1e-4 + 1e-9, "reproj_px": 2.0}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms, no autotuning, and torch's
+    deterministic implementations (a warning where an op has none)."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+def remat_phase(cfg_base, nn_model, step_mod, state_mod, load_config, splat, trained: dict) -> dict:
+    """TPU.REMAT. remat_check: one DLA-34 384x128 b2 fp32 step with REMAT
+    against the same step without, same weights and batch, TF32 off and
+    deterministic algorithms: the loss, aux and each gradient within
+    REMAT_GATE_REL. remat: the train phase's config and shape (1280x384 b32
+    bf16, EMA) with REMAT: ms a step and peak memory beside the train
+    phase's, one splat launch a step; the REMAT peak must be below the
+    train phase's (else REMAT saves nothing on this card)."""
+    cfg = cfg_base.clone()
+    cfg.INPUT_SIZE = REMAT_CHECK_HW
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    model = nn_model.create_model(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(3)
+    w, h = REMAT_CHECK_HW
+    batch = {"image": torch.from_numpy((rng.rand(REMAT_CHECK_BATCH, h, w, 3) * 255).astype(np.uint8)),
+             "labels": synthetic_labels(rng, REMAT_CHECK_BATCH, TRAIN_OBJS, scale=0.3)}
+    runs = {}
+    with deterministic():
+        for remat in (False, True):
+            cfg.TPU.REMAT = remat
+            state = state_mod.TrainState.create(model, cfg, device="cuda")
+            state, m = step_mod.make_train_step(cfg, device="cuda")(state, batch)
+            runs[remat] = (m["loss_items"].double().cpu(),
+                           {k: p.grad.detach().double().cpu() for k, p in state.model.named_parameters()
+                            if p.grad is not None})
+    (aux_off, g_off), (aux_on, g_on) = runs[False], runs[True]
+    aux_rel = ((aux_on - aux_off).abs() / aux_off.abs().clamp(min=1e-30)).max().item()
+    per = {k: ((g_on[k] - g_off[k]).norm() / g_off[k].norm()).item() for k in g_off if g_off[k].norm() > 0}
+    rec = {"input": f"{w}x{h}", "batch": REMAT_CHECK_BATCH, "loss_off": aux_off[4].item(), "loss_on": aux_on[4].item(),
+           "aux_max_rel": aux_rel, "grad_l2_rel_max": max(per.values()),
+           "grad_tensors_bit_equal": sum(torch.equal(g_on[k], g_off[k]) for k in g_off), "grad_tensors": len(g_off),
+           "gate_rel": REMAT_GATE_REL}
+    emit("remat_check", **rec)
+    if set(g_on) != set(g_off) or aux_rel > REMAT_GATE_REL or max(per.values()) > REMAT_GATE_REL:
+        raise AssertionError(f"remat_check: the step with TPU.REMAT parts from the step without: {rec}")
+
+    cfg = load_config(os.path.join(CONFIGS, "rtm3d_dla34_kitti_tpu.yaml"))
+    cfg.INPUT_SIZE = (W, H)
+    cfg.BATCH_SIZE, cfg.DATASET.MAX_OBJS = TRAIN_BATCH, TRAIN_OBJS
+    cfg.TPU.REMAT = True
+    batches = train_batches()
+    state = state_mod.TrainState.create(nn_model.create_model(cfg, torch.Generator().manual_seed(0)), cfg,
+                                        device="cuda")
+    step = step_mod.make_train_step(cfg, device="cuda")
+    for b in batches[:TRAIN_WARMUP]:
+        state, _ = step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    splat.splat_heatmap.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    losses = []
+    start.record()
+    for b in batches[TRAIN_WARMUP:]:
+        state, m = step(state, b)
+        losses.append(m["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    launches = splat.splat_heatmap.launches
+    ms = start.elapsed_time(end) / TRAIN_TIMED
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack(losses).cpu()
+    rec = {"batch": TRAIN_BATCH, "input": f"{W}x{H}", "dtype": "bfloat16 autocast", "ema": True,
+           "timed_steps": TRAIN_TIMED, "ms_per_step": ms, "images_per_s": TRAIN_BATCH / (ms / 1e3),
+           "peak_mem_gb": peak, "splat_launches": launches,
+           "train_phase_ms_per_step": trained["ms_per_step"], "train_phase_peak_mem_gb": trained["peak_mem_gb"],
+           "step_time_ratio": ms / trained["ms_per_step"], "peak_ratio": peak / trained["peak_mem_gb"],
+           "loss_first": losses[0].item(), "loss_last": losses[-1].item()}
+    emit("remat", **rec)
+    del state, batches
+    torch.cuda.empty_cache()
+    if not torch.isfinite(losses).all() or launches != TRAIN_TIMED:
+        raise AssertionError(f"remat: a non-finite loss, or other than one splat launch a step: {rec}")
+    if not peak < trained["peak_mem_gb"]:
+        raise AssertionError(f"remat: the REMAT step's peak is not below the step's without it: {rec}")
+    return rec
+
+
+def bench_phase() -> dict:
+    """``python -m rtm3d_tpu_torch.tools.bench`` and ``--b1`` (their lines
+    echoed as the tool prints them): 2 LM launches a call, finite outputs."""
+    from rtm3d_tpu_torch.tools import bench
+
+    recs = {"b128": bench.main([]), "b1": bench.main(["--b1"])}
+    emit("bench", **recs)
+    for r in recs.values():
+        if r["lm_launches_per_call"] != 2 or not np.isfinite(r["value"]) or not r["value"] > 0:
+            raise AssertionError(f"bench: other than 2 LM launches a call, or no finite figure: {recs}")
+    if not recs["b128"]["outputs_finite"]:
+        raise AssertionError(f"bench: the detect outputs are not finite: {recs}")
+    calls = {"b128": bench.ITERS, "b1": bench.B1_ITERS}
+    return {"lm_launches": sum(round(r["lm_launches_per_call"] * calls[k]) for k, r in recs.items()), "records": recs}
+
+
+def latency_phase() -> dict:
+    """``python -m rtm3d_tpu_torch.tools.bench_latency``: DLA-34 bf16 at b1,
+    8 and 32, the same with --int8, and ResNet-18 fp32 at b1 and 8,
+    LATENCY_ITERS calls each; the reports to chip_smoke_out/latency_*.json.
+    Gates: 2 LM launches a call, and under --int8 52 quantize and 52
+    conv_s8 launches a DLA-34 call."""
+    from rtm3d_tpu_torch.tools import bench_latency
+
+    os.makedirs("chip_smoke_out", exist_ok=True)
+    runs = {"bf16": ["--batches", "1,8,32"], "int8": ["--batches", "1,8,32", "--int8"],
+            "resnet18_fp32": ["--batches", "1,8", "--backbone", "RESNET-18", "--dtype", "float32"]}
+    recs, launches = {}, {"lm": 0, "conv_s8": 0, "quantize": 0}
+    for name, argv in runs.items():
+        report = bench_latency.main(argv + ["--iters", str(LATENCY_ITERS), "--out",
+                                            f"chip_smoke_out/latency_{name}.json"])
+        recs[name] = {r["batch"]: {"device": r["device"], "wall": r["wall"], "launches_per_call": r["launches_per_call"]}
+                      for r in report["results"]}
+        convs = 52 if name == "int8" else 0
+        for r in report["results"]:
+            per = r["launches_per_call"]
+            if per["lm"] != 2 or per["conv_s8"] != convs or per["quantize"] != convs:
+                raise AssertionError(f"latency_{name}: launches a call {per}, expected 2 LM and {convs} of each int8 "
+                                     f"kernel: {r}")
+            for k in launches:
+                launches[k] += round(per[k] * r["iters"])
+    emit("latency", **recs)
+    return {"records": recs, "launches": launches}
+
+
+def bench_train_phase(tree: str) -> dict:
+    """``python -m rtm3d_tpu_torch.tools.bench_train``: step-only b32 bf16,
+    then step-only b16 fp32 and --e2e on the data phase's tree at b16 with
+    4 loader workers. Gates: one splat launch a step, finite losses."""
+    from rtm3d_tpu_torch.tools import bench_train
+
+    recs = {"bf16_b32": bench_train.main(["--batch", "32", "--dtype", "bfloat16"])}
+    recs["fp32_b16"] = bench_train.main(["--batch", "16", "--e2e", "--data-path", tree, "--workers", "4"])
+    lines = [recs["bf16_b32"]["step_only"], recs["fp32_b16"]["step_only"], recs["fp32_b16"]["e2e"]]
+    emit("bench_train", **recs)
+    if any(l["splat_launches_per_step"] != 1 or not np.isfinite(l["loss"]) for l in lines):
+        raise AssertionError(f"bench_train: other than one splat launch a step, or a non-finite loss: {recs}")
+    steps = [10, 10, recs["fp32_b16"]["e2e"]["steps"]]  # the tool's 10 timed steps, the e2e epochs' steps
+    torch.cuda.empty_cache()
+    return {"splat_launches": sum(round(l["splat_launches_per_step"] * n) for l, n in zip(lines, steps)),
+            "records": recs}
+
+
+def real_parity_phase(tree: str, weights: str) -> dict:
+    """``python -m rtm3d_tpu_torch.tools.real_parity``, a dry run on the
+    data phase's test split (20 frames of 375x1242 at 1280x416) at the dry
+    run's bars (REAL_PARITY_BARS) with detect_cli_device's weights (the
+    device run's EMA, the vertex head drawing a car), top-K
+    REAL_PARITY_TOPK, the int8 leg, a bootstrap of REAL_PARITY_BOOTSTRAP.
+    Gates: 20 result files on each leg, an accepted detection on each leg,
+    27 cells on each grid, 2 LM launches a batch (and 52 of each int8
+    kernel on the int8 leg); every cell's port-minus-reference delta within
+    REAL_PARITY_DELTA; the port's lines against the reference's, each way,
+    and every leg's 3D boxes against its 2D boxes (REAL_PARITY_GATE)."""
+    from rtm3d_tpu_torch.ops import int8_conv
+    from rtm3d_tpu_torch.tools import real_parity
+
+    work = os.path.join(os.path.dirname(tree), "real_parity")
+    int8_conv.conv_s8.launches = int8_conv.quantize.launches = 0
+    t0 = time.perf_counter()
+    out = real_parity.run_real_parity(tree, weights, split="test", backbone="DLA-34", input_size=1280,
+                                      batch=REAL_PARITY_BATCH, work_dir=work, topk=REAL_PARITY_TOPK,
+                                      bootstrap=REAL_PARITY_BOOTSTRAP, with_int8=True, **REAL_PARITY_BARS,
+                                      progress=lambda *a: print(*a, file=sys.stderr, flush=True))
+    seconds = time.perf_counter() - t0
+    int8_launches = {"conv_s8": int8_conv.conv_s8.launches, "quantize": int8_conv.quantize.launches}
+    dirs = {leg: os.path.join(work, f"results_{leg}") for leg in ("port", "torch", "int8")}
+    files = {leg: len(os.listdir(d)) for leg, d in dirs.items()}
+    names = sorted(open(os.path.join(tree, "ImageSets", "test.txt")).read().split())
+    agree = {"port_vs_reference": compare_result_dirs(dirs["torch"], dirs["port"], names),
+             "reference_vs_port": compare_result_dirs(dirs["port"], dirs["torch"], names)}
+    reproj = {leg: reprojection_px(d, names, tree) for leg, d in dirs.items()}
+    legs = {k: dict(v) for k, v in out["legs"].items()}
+    cells = {grid: {k: c for k, c in out[grid].items() if c["port"] or c["torch"] or c["int8"]}
+             for grid in ("ap_r40", "ap_r11")}
+    rec = {"config": out["config"], "accepted_counts": out["accepted_counts"], "legs": legs, "files": files,
+           "int8_launches": int8_launches, "seconds": seconds, "agreement": agree, "reprojection": reproj,
+           "gate": REAL_PARITY_GATE,
+           "delta_gate": REAL_PARITY_DELTA, "nonzero_cells": cells,
+           "max_abs_delta": max(abs(c["delta"]) for grid in ("ap_r40", "ap_r11") for c in out[grid].values()),
+           "car_3d_moderate_r40": out["ap_r40"]["Car_3d_moderate"],
+           "grid_cells": {k: len(out[k]) for k in ("ap_r40", "ap_r11")},
+           "bootstrap_car_3d": out["bootstrap"]["Car_3d_moderate"]}
+    with open(os.path.join("chip_smoke_out", "real_parity.json"), "w") as f:
+        json.dump({"report": out, "agreement": agree, "reprojection": reproj}, f, indent=1)
+    emit("real_parity", **rec)
+    want_int8 = 52 * legs["int8"]["batches"]
+    if (set(files.values()) != {DATA_TEST} or min(out["accepted_counts"].values()) < 1
+            or rec["grid_cells"] != {"ap_r40": 27, "ap_r11": 27}
+            or any(legs[k]["lm_launches"] != 2 * legs[k]["batches"] for k in ("port", "int8"))
+            or int8_launches != {"conv_s8": want_int8, "quantize": want_int8}):
+        raise AssertionError(f"real_parity: a leg wrote other than {DATA_TEST} files or accepted nothing, a grid "
+                             f"other than 27 cells, or other than 2 LM launches a batch: {rec}")
+    if rec["max_abs_delta"] > REAL_PARITY_DELTA:
+        raise AssertionError(f"real_parity: the port's AP parts from the reference's by more than "
+                             f"{REAL_PARITY_DELTA} points: {rec}")
+    if any(a["box_agree_share"] < REAL_PARITY_GATE["box_agree_share"] or a["agreed_score"] > REAL_PARITY_GATE["score"]
+           for a in agree.values()):
+        raise AssertionError(f"real_parity: the port's lines disagree with the reference pipeline's: {rec}")
+    if any(r["max_px"] > REAL_PARITY_GATE["reproj_px"] for r in reproj.values()):
+        raise AssertionError(f"real_parity: a leg's 3D boxes do not reproject onto its 2D boxes: {rec}")
+    return {"lm_launches": legs["port"]["lm_launches"] + legs["int8"]["lm_launches"], "int8_launches": int8_launches,
+            "record": rec}
+
+
 # -- data parallelism (parallel/dist.py): two gloo ranks sharing the card, and torchrun at world size 1 --
 DDP_WORLD = 2
 DDP_FP32_HW, DDP_FP32_BATCH, DDP_FP32_STEPS = (384, 128), 4, 3  # ddp_fp32: train_fp32's frame, global batch 4
@@ -2596,6 +2880,12 @@ def main() -> int:
     phase_done("train_fp32")
     trained = train_phase(nn_model, step_mod, state_mod, load_config, lm, splat)
     phase_done("train_and_profile")
+    remat = remat_phase(cfg, nn_model, step_mod, state_mod, load_config, splat, trained)
+    phase_done("remat")
+    benched = bench_phase()
+    phase_done("bench")
+    latency = latency_phase()
+    phase_done("latency")
     from_files, data_splats, tree, checkpoint = data_phase(splat, load_config, generate_kitti, cli_train)
     phase_done("data")
     from_files_detect = detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree, checkpoint)
@@ -2613,6 +2903,10 @@ def main() -> int:
     phase_done("int8_cli")
     host_variants = host_variants_phase(splat, load_config, cli_train, tree, from_files["train_cli_host"])
     phase_done("fast_preproc_and_mosaic")
+    train_benched = bench_train_phase(tree)
+    phase_done("bench_train")
+    parity = real_parity_phase(tree, from_files_detect["device_weights"])
+    phase_done("real_parity")
     torch.cuda.empty_cache()  # the ranks below are processes of their own on this card
     ddp_fp32 = ddp_fp32_phase()
     phase_done("ddp_fp32")
@@ -2627,6 +2921,10 @@ def main() -> int:
     pair = (first, second)
     int8_lm = {k: v["lm"] for k, v in int8_cli["launches"].items()}
     int8_launches = {k: {"quantize": v["quantize"], "conv_s8": v["conv_s8"]} for k, v in int8_cli["launches"].items()}
+    int8_launches["latency_int8"] = {k: latency["launches"][k] for k in ("quantize", "conv_s8")}
+    int8_launches["real_parity_int8"] = parity["int8_launches"]
+    tool_lm = {"bench": benched["lm_launches"], "latency": latency["launches"]["lm"],
+               "real_parity": parity["lm_launches"]}
     fwd = int8_kernels["forward"]
     print(json.dumps({"kernels": [{
         "name": "lm_solver",
@@ -2636,13 +2934,14 @@ def main() -> int:
         # 2 per detect call: the serve phase's calls, the detect CLI's
         # batches, the ResNet-18 detect run's and the runs from its
         # artifacts, the int8 runs with 3D (--int8-3d-anyway, evaluate),
-        # the detect CLI under torchrun
+        # the tools' timed calls (bench, bench_latency) and real_parity's
+        # batches (the port and int8 legs), the detect CLI under torchrun
         "launches": (served["lm_launches"] + from_files_detect["launches"]
                      + resnet["launches"]["resnet18_detect"] + resnet["launches"]["export_detect"]
-                     + sum(int8_lm.values()) + ddp_cli["lm_launches"]),
+                     + sum(int8_lm.values()) + sum(tool_lm.values()) + ddp_cli["lm_launches"]),
         "launches_by_path": {"serve": served["lm_launches"], "detect_cli": from_files_detect["launches"],
                              "resnet18_detect": resnet["launches"]["resnet18_detect"],
-                             "export_detect": resnet["launches"]["export_detect"], **int8_lm,
+                             "export_detect": resnet["launches"]["export_detect"], **int8_lm, **tool_lm,
                              "ddp_cli_detect": ddp_cli["lm_launches"]},
         # the largest cost gap where both accept: the lm phases' lanes and
         # every launch of detect_cli_device and of the resnet18 phase's
@@ -2661,15 +2960,19 @@ def main() -> int:
         "source": "rtm3d_tpu_torch/csrc/splat.cu",
         "replaces": SPLAT_REPLACES,
         # one launch per train step and eval batch: the timed steps of the
-        # train phase, the data phase's three runs of the CLI, the
+        # train and remat phases, the data phase's three runs of the CLI, the
         # FAST_PREPROC and mosaic runs and the ResNet-18 run; one per overlay
-        # of cli.stats --vis-targets; one per rank per step of the ddp
-        # phases, and per train and eval batch of the train CLI under torchrun
-        "launches": (trained["splat_launches"] + sum(r["splat_launches"] for r in from_files.values())
+        # of cli.stats --vis-targets; bench_train's timed steps; one per rank
+        # per step of the ddp phases, and per train and eval batch of the
+        # train CLI under torchrun
+        "launches": (trained["splat_launches"] + remat["splat_launches"]
+                     + sum(r["splat_launches"] for r in from_files.values())
                      + sum(r["splat_launches"] for r in host_variants.values())
                      + resnet["launches"]["resnet18_train"] + resnet["launches"]["stats"]
+                     + train_benched["splat_launches"]
                      + ddp_fp32["splat_launches"] + ddp_full["splat_launches"] + ddp_cli["splat_launches"]),
-        "launches_by_path": {"train": trained["splat_launches"],
+        "launches_by_path": {"train": trained["splat_launches"], "remat": remat["splat_launches"],
+                             "bench_train": train_benched["splat_launches"],
                              **{k: r["splat_launches"] for k, r in from_files.items()},
                              **{k: r["splat_launches"] for k, r in host_variants.items()},
                              "resnet18_train": resnet["launches"]["resnet18_train"],
@@ -2693,7 +2996,8 @@ def main() -> int:
         "source": "rtm3d_tpu_torch/csrc/int8_conv.cu",
         "replaces": INT8_REPLACES,
         # once per int8 conv of each int8 detect call: the int8_cli phase's
-        # CLI runs and the int8 detect of evaluate --int8
+        # CLI runs and the int8 detect of evaluate --int8, bench_latency
+        # --int8's timed calls and real_parity's int8 leg
         "launches": sum(v["quantize"] for v in int8_launches.values()),
         "launches_by_path": {k: v["quantize"] for k, v in int8_launches.items()},
         # bit-equal on every distinct conv shape (int8_kernel); the times are

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rtm3d_tpu_torch.nn.layers import BatchNorm, Conv, ConvBNReLU, ConvLevel
+from rtm3d_tpu_torch.nn.layers import BatchNorm, Conv, ConvBNReLU, ConvLevel, remat_segment
 from rtm3d_tpu_torch.nn.spec import ShapeSpec
 
 DLA34_LEVELS = [1, 1, 1, 2, 2, 1]
@@ -165,11 +165,13 @@ class DLABase(nn.Module):
             for k in self.kfns
         }
 
-    def forward(self, x):
+    def forward(self, x, remat: bool = False):
+        """With ``remat`` (training) each stage, ``base_layer`` and
+        ``level0..level5``, is a checkpointed segment (``remat_segment``)."""
         outs = []
-        x = self.base_layer(x)
+        x = remat_segment(self.base_layer, remat, x)
         for i in range(6):
-            x = getattr(self, f"level{i}")(x)
+            x = remat_segment(getattr(self, f"level{i}"), remat, x)
             if f"level{i}" in self.kfns:
                 outs.append(x)
         return outs

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from rtm3d_tpu_torch.nn.layers import Conv, ConvLevel
+from rtm3d_tpu_torch.nn.layers import Conv, ConvLevel, remat_segment
 
 BRANCHES = ("main_kf", "offset_fr_main", "main_offset", "vertex_offset")
 
@@ -42,5 +42,6 @@ class RTM3DHeader(nn.Module):
                 f"{name}_header", HeadBranch(name, in_channels, mid_channels, oc, num_conv)
             )
 
-    def forward(self, x):
-        return tuple(getattr(self, f"{n}_header")(x) for n in BRANCHES)
+    def forward(self, x, remat: bool = False):
+        """With ``remat`` (training) each branch is a checkpointed segment."""
+        return tuple(remat_segment(getattr(self, f"{n}_header"), remat, x) for n in BRANCHES)

@@ -30,6 +30,24 @@ Training semantics carried over from the JAX package:
   torch's update so the running statistics follow flax's. Normalisation
   itself uses the biased variance in both.
 
+Rematerialisation (``TPU.REMAT``, ``rtm3d_tpu/train/step.py:141-142``):
+``remat_segment`` runs a segment of the network under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, which
+drops the segment's activations after the forward and recomputes them in
+the backward. ``jax.checkpoint`` recomputes a pure function; here the
+recompute would run every train-mode ``BatchNorm`` of the segment again,
+which would count ``num_batches_tracked`` and fold the batch into the
+running statistics a second time. So the checkpoint's ``context_fn``
+(``_bn_guard``) marks the first pass and the recompute: on the recompute
+a ``BatchNorm`` counts nothing and folds nothing (its output in train mode
+does not depend on the running statistics, so the local path normalises
+with throw-away copies of them), and the synchronised path takes the
+mean, variance and count the first pass stashed, so that its output is
+the first pass's bit for bit (recomputed, its shift, the running mean,
+would be the updated one, and the statistics would differ in their last
+bits) and it issues no all-reduce again. The backward all-reduce runs
+once, in the first pass's node.
+
 Not ported, being exact reparameterisations of the plain convolution the
 port runs: the space-to-depth stem (train-only in the JAX package), the
 phase-decomposed upsample (off by default there) and the ``_upsample2x``
@@ -38,12 +56,16 @@ custom VJP.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rtm3d_tpu_torch.parallel.dist import all_reduce_sum, world_size
 
@@ -91,6 +113,40 @@ class Conv(nn.Conv2d):
             self.bias.uniform_(-b, b, generator=generator)
 
 
+@contextlib.contextmanager
+def _remat_mode(bns: list, mode: str):
+    """Each of ``bns`` in ``mode`` (``"record"``: the segment's first pass;
+    ``"replay"``: its recompute) for the block."""
+    for bn in bns:
+        bn.remat_mode = mode
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.remat_mode = None
+
+
+def _bn_guard(module: nn.Module):
+    """The ``context_fn`` of ``remat_segment`` over ``module``: its
+    BatchNorms record on the first pass and replay on the recompute (see
+    the module docstring)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.remat_stash.clear()
+    return _remat_mode(bns, "record"), _remat_mode(bns, "replay")
+
+
+def remat_segment(module: nn.Module, remat: bool, *args):
+    """``module(*args)``; with ``remat``, in train mode and with gradients
+    on, under a non-reentrant ``torch.utils.checkpoint`` whose recompute
+    leaves the BatchNorms' running statistics alone (``_bn_guard``). The
+    network draws no random numbers, so no RNG state is kept."""
+    if remat and module.training and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=functools.partial(_bn_guard, module))
+    return module(*args)
+
+
 class _SyncBatchNorm(torch.autograd.Function):
     """Train-mode BatchNorm over the rows of every rank: the JAX step under
     a ``data`` mesh takes flax's batch statistics over the global batch.
@@ -110,22 +166,28 @@ class _SyncBatchNorm(torch.autograd.Function):
     dtype (bfloat16 under autocast); the output in ``x``'s dtype."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, running_mean, running_var, momentum: float, eps: float):
-        C = x.shape[1]
-        n = x.numel() // C
-        sdt = running_mean.dtype  # the statistics' dtype: float32, or float64 for a float64 module
-        shift = running_mean.detach().double()
-        var_l, mean_l = torch.var_mean(x.to(sdt), dim=(0, 2, 3), correction=0)
-        d_l = mean_l.double() - shift
-        stats = torch.cat([n * d_l, n * (var_l.double() + d_l * d_l), d_l.new_full((1,), float(n))])
-        stats = all_reduce_sum(stats)
-        total = stats[-1]
-        d = stats[:C] / total
-        mean = (shift + d).to(sdt)
-        var = (stats[C:2 * C] / total - d * d).clamp_(min=0.0).to(sdt)
-        with torch.no_grad():
-            running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
-            running_var.mul_(1 - momentum).add_(var, alpha=momentum)
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum: float, eps: float,
+                remat_mode=None, remat_stash=None):
+        if remat_mode == "replay":  # a checkpoint's recompute: the first pass's statistics, folded then
+            mean, var, total = remat_stash.popleft()
+        else:
+            C = x.shape[1]
+            n = x.numel() // C
+            sdt = running_mean.dtype  # the statistics' dtype: float32, or float64 for a float64 module
+            shift = running_mean.detach().double()
+            var_l, mean_l = torch.var_mean(x.to(sdt), dim=(0, 2, 3), correction=0)
+            d_l = mean_l.double() - shift
+            stats = torch.cat([n * d_l, n * (var_l.double() + d_l * d_l), d_l.new_full((1,), float(n))])
+            stats = all_reduce_sum(stats)
+            total = stats[-1]
+            d = stats[:C] / total
+            mean = (shift + d).to(sdt)
+            var = (stats[C:2 * C] / total - d * d).clamp_(min=0.0).to(sdt)
+            with torch.no_grad():
+                running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
+                running_var.mul_(1 - momentum).add_(var, alpha=momentum)
+            if remat_mode == "record":
+                remat_stash.append((mean, var, total))
         invstd = torch.rsqrt(var + eps)
         ctx.save_for_backward(x, weight, mean, invstd)
         ctx.total = total
@@ -143,7 +205,7 @@ class _SyncBatchNorm(torch.autograd.Function):
         scale = (weight * invstd)[:, None, None]
         total = ctx.total.to(mean.dtype)
         dx = scale * (dyf - sums[:C, None, None] / total - xhat * (sums[C:, None, None] / total))
-        return dx.to(x.dtype), dweight, dbias, None, None, None, None
+        return dx.to(x.dtype), dweight, dbias, None, None, None, None, None, None
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -151,19 +213,28 @@ class BatchNorm(nn.BatchNorm2d):
     in train mode ``running_var`` follows the biased batch variance, as
     flax's does. In train mode under a process group of more than one rank
     the statistics are the global batch's (``_SyncBatchNorm``); with one
-    rank, or none, the path below is the one it always was."""
+    rank, or none, the path below is the one it always was. In the
+    recompute of a checkpointed segment (``remat_segment``) it counts and
+    folds nothing."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.remat_mode = None  # "record" or "replay" inside a checkpointed segment (_bn_guard)
+        self.remat_stash = collections.deque()  # the synchronised statistics the first pass keeps
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self._check_input_dim(x)
-        self.num_batches_tracked.add_(1)
+        replay = self.remat_mode == "replay"
+        if not replay:
+            self.num_batches_tracked.add_(1)
         if world_size() > 1:
             return _SyncBatchNorm.apply(x, self.weight, self.bias, self.running_mean, self.running_var,
-                                        self.momentum, self.eps)
+                                        self.momentum, self.eps, self.remat_mode, self.remat_stash)
+        if replay:  # the batch's statistics, as on the first pass; throw-away running statistics
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(), self.weight, self.bias,
+                                True, self.momentum, self.eps)
         n = x.numel() // x.shape[1]
         # torch folds the unbiased batch variance into the copy it is given
         # (autograd saves that copy, so it is not touched again):

@@ -7,6 +7,18 @@ DLA-34 (``nn/dla.py``) or a PoseResNet of the depth the name ends in
 NCHW (or channels_last) images and returns the 4 logit maps in NCHW:
 (main_kf [B,C,H/4,W/4], offset_fr_main [.,16,.,.], main_offset [.,2,.,.],
 vertex_offset [.,2,.,.]); decode is separate (``decode/peaks.py``).
+
+``forward(x, remat=True)`` is the training forward under ``TPU.REMAT``:
+each backbone stage (DLA-34's ``base_layer`` and ``level0..level5``,
+ResNet's ``layer1..layer4``), the KFPN fusion and each header branch runs
+as a checkpointed segment (``nn/layers.py::remat_segment``). The JAX step
+checkpoints its whole forward as one segment
+(``rtm3d_tpu/train/step.py:141-142``), which XLA schedules as one program;
+in eager PyTorch one segment would hold every activation again while it
+recomputes, and save almost nothing. Segments a stage long keep one
+stage's activations at a time; the KFPN and the header, at stride 4 and
+256 channels, hold most of a DLA-34 step's activations, so they are
+segments too.
 """
 
 from __future__ import annotations
@@ -20,7 +32,7 @@ from rtm3d_tpu_torch.config import Config
 from rtm3d_tpu_torch.nn.dla import DLABase
 from rtm3d_tpu_torch.nn.header import RTM3DHeader
 from rtm3d_tpu_torch.nn.kfpn import KeypointFPNFusion
-from rtm3d_tpu_torch.nn.layers import init_weights
+from rtm3d_tpu_torch.nn.layers import init_weights, remat_segment
 from rtm3d_tpu_torch.nn.resnet import PoseResNet
 
 
@@ -51,8 +63,9 @@ class RTM3D(nn.Module):
             num_conv=header_num_conv,
         )
 
-    def forward(self, x):
-        return self.detect_header(self.kfpn_fusion(self.backbone(x)))
+    def forward(self, x, remat: bool = False):
+        feats = self.backbone(x, remat)
+        return self.detect_header(remat_segment(self.kfpn_fusion, remat, feats), remat)
 
 
 def create_model(cfg: Config, generator: torch.Generator | None = None) -> RTM3D:

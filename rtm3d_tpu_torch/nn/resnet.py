@@ -21,7 +21,7 @@ from typing import Sequence
 import torch.nn.functional as F
 from torch import nn
 
-from rtm3d_tpu_torch.nn.layers import BatchNorm, Conv
+from rtm3d_tpu_torch.nn.layers import BatchNorm, Conv, remat_segment
 from rtm3d_tpu_torch.nn.spec import ShapeSpec
 
 
@@ -132,11 +132,13 @@ class PoseResNet(nn.Module):
             for k in self.kfns
         }
 
-    def forward(self, x):
+    def forward(self, x, remat: bool = False):
+        """With ``remat`` (training) each of ``layer1..layer4`` is a
+        checkpointed segment (``remat_segment``); the stem is not."""
         x = self.maxpool(F.relu(self.bn1(self.conv1(x)), inplace=True))
         outs = []
         for name in self.layer_names:
-            x = getattr(self, name)(x)
+            x = remat_segment(getattr(self, name), remat, x)
             if name in self.kfns:
                 outs.append(x)
         return outs

@@ -26,10 +26,18 @@ under bf16 BatchNorm keeps fp32 weights and running statistics and
 reduces in fp32, and the KFPN softmax runs in fp32 (autocast promotes
 it), where the JAX step ran both in bf16. Parity is held at fp32.
 
-Left out (ROADMAP.md): ``TPU.REMAT`` (a ``torch.utils.checkpoint``
-re-run of the forward would update the BN running statistics a second
-time, which ``jax.checkpoint`` does not) and ``TPU.DONATE`` (no meaning
-in eager PyTorch: the step updates the state in place).
+``TPU.REMAT``: the train step runs the network as checkpointed segments,
+one per backbone stage, the KFPN fusion and one per header branch
+(``nn/model.py``), with the BatchNorms guarded so that the recompute
+neither counts nor folds the batch again (``nn/layers.py::
+remat_segment``): the same numbers as without it, less activation
+memory. The JAX step checkpoints its whole forward as one segment
+(step.py:141-142); in eager PyTorch a single segment would hold every
+activation again while it recomputes. The eval-loss and detect steps
+never checkpoint.
+
+Left out (ROADMAP.md): ``TPU.DONATE`` (no meaning in eager PyTorch: the
+step updates the state in place).
 """
 
 from __future__ import annotations
@@ -144,11 +152,12 @@ def _check_state(state, device: torch.device) -> None:
 
 
 def _loss_from_batch(net: nn.Module, cfg: Config, batch: dict, sample_mask=None, variables=None,
-                     image_cache=None):
+                     image_cache=None, remat: bool = False):
     """(loss, aux) of ``net`` on ``batch``, targets built on the device.
     ``variables``: parameters and buffers to evaluate in place of the
     module's own (``torch.func.functional_call``); ``image_cache``: the
-    device dataset cache ``prepare_images`` gathers from."""
+    device dataset cache ``prepare_images`` gathers from; ``remat``: the
+    forward as checkpointed segments (``TPU.REMAT``, training only)."""
     targets = build_targets(
         batch["labels"],
         _feat_hw(cfg),
@@ -162,7 +171,7 @@ def _loss_from_batch(net: nn.Module, cfg: Config, batch: dict, sample_mask=None,
     x = prepare_images(batch, cfg, image_cache).permute(0, 3, 1, 2)
     dtype = compute_dtype(cfg)
     with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != torch.float32):
-        logits = net(x) if variables is None else torch.func.functional_call(net, variables, (x,))
+        logits = net(x, remat=remat) if variables is None else torch.func.functional_call(net, variables, (x,))
     t = cfg.TRAINING
     return rtm3d_loss(
         logits, targets,
@@ -220,6 +229,7 @@ def make_train_step(cfg: Config, device=None) -> Callable:
     device = resolve_device(device)
     compute_dtype(cfg)  # validate before the first step
     decay = float(cfg.TRAINING.get("EMA_DECAY", 0.9999))
+    remat = bool(cfg.TPU.get("REMAT", False))
 
     def train_step(state, batch, image_cache=None):
         _check_state(state, device)
@@ -229,7 +239,7 @@ def make_train_step(cfg: Config, device=None) -> Callable:
         batch = _to_device(batch, device)
         if state.step % k == 0:
             opt.zero_grad(set_to_none=True)
-        loss, aux = _loss_from_batch(net, cfg, batch, image_cache=image_cache)
+        loss, aux = _loss_from_batch(net, cfg, batch, image_cache=image_cache, remat=remat)
         loss.backward()
         if (state.step + 1) % k == 0:
             grads = []

@@ -10,6 +10,7 @@ imports another version of ``rtm3d_tpu_torch`` (``chip_smoke.py
 
 from __future__ import annotations
 
+import os
 import subprocess
 import sys
 
@@ -277,6 +278,39 @@ def _result_lines(path: str) -> list:
         return [(p[0], np.array(p[1:], np.float64)) for p in (l.split() for l in f.read().splitlines()) if p]
 
 
+def reprojection_px(results_dir: str, names, tree: str) -> dict:
+    """Each KITTI result line's 3D box (h, w, l, bottom-centre location,
+    ry) projected with its frame's K (calib P2's 3x3, the solver's camera),
+    the box of its 8 corners clipped to the frame as the detect CLI clips,
+    against the line's 2D box, the box of the decoded vertices: the line
+    count and the largest |difference| in pixels. A 3D box that fits the
+    vertices (an accepted solve) projects onto that box, whichever solver
+    found it; a wrong one does not."""
+    from PIL import Image
+
+    from rtm3d_tpu_torch.data.kitti import parse_calib_file
+
+    n, worst = 0, 0.0
+    for name in names:
+        K = parse_calib_file(f"{tree}/training/calib/{name}.txt").reshape(3, 3).astype(np.float64)
+        image = [f for f in os.listdir(f"{tree}/training/image_2") if os.path.splitext(f)[0] == name][0]
+        w0, h0 = Image.open(f"{tree}/training/image_2/{image}").size
+        for _, v in _result_lines(f"{results_dir}/{name}.txt"):
+            h, w, l = v[7:10]
+            c, s = np.cos(v[13]), np.sin(v[13])
+            x = l / 2 * np.array([1, 1, -1, -1, 1, 1, -1, -1])
+            y = -h * np.array([0, 0, 0, 0, 1, 1, 1, 1])
+            z = w / 2 * np.array([1, -1, -1, 1, 1, -1, -1, 1])
+            corners = np.stack([c * x + s * z, y, -s * x + c * z]) + v[10:13, None]
+            uv = K @ corners
+            u, vv = uv[0] / uv[2], uv[1] / uv[2]
+            box = np.array([u.min(), vv.min(), u.max(), vv.max()])
+            box[0::2], box[1::2] = box[0::2].clip(0, w0 - 1), box[1::2].clip(0, h0 - 1)
+            worst = max(worst, float(np.abs(box - v[3:7]).max()))
+            n += 1
+    return {"lines": n, "max_px": worst}
+
+
 def compare_result_dirs(want_dir: str, got_dir: str, names) -> dict:
     """Two directories of KITTI result files, line against line: each line
     of ``want_dir`` is matched to the line of ``got_dir`` of its image and
@@ -285,9 +319,12 @@ def compare_result_dirs(want_dir: str, got_dir: str, names) -> dict:
     the largest |difference| per field group: box, score, angle (alpha and
     ry, wrapped), dim, loc; the share whose pose agrees to the format's
     last digit (angles and dim within 0.01, loc within 0.05, the tolerances
-    of the port's CPU tests against the JAX package); and the depths of the
+    of the port's CPU tests against the JAX package); the largest score
+    |difference| of the lines whose box agrees (``agreed_score``: a line on
+    one side only is matched to another detection); and the depths of the
     matched lines."""
     n_want = n_got = within = pose_within = 0
+    agreed_score = 0.0
     worst = {"box": 0.0, "score": 0.0, "angle": 0.0, "dim": 0.0, "loc": 0.0}
     depth = []
     for name in names:
@@ -301,6 +338,8 @@ def compare_result_dirs(want_dir: str, got_dir: str, names) -> dict:
             g = min(cands, key=lambda v: np.abs(v[3:7] - w[3:7]).max())
             box = float(np.abs(g[3:7] - w[3:7]).max())
             within += box <= 0.01 + 1e-9
+            if box <= 0.01 + 1e-9:
+                agreed_score = max(agreed_score, float(abs(g[14] - w[14])))
             d = {"box": box, "score": float(abs(g[14] - w[14])),
                  "angle": float(np.abs(np.angle(np.exp(1j * (g[[2, 13]] - w[[2, 13]])))).max()),
                  "dim": float(np.abs(g[7:10] - w[7:10]).max()), "loc": float(np.abs(g[10:13] - w[10:13]).max())}
@@ -308,5 +347,5 @@ def compare_result_dirs(want_dir: str, got_dir: str, names) -> dict:
             pose_within += d["angle"] <= 0.01 + 1e-9 and d["dim"] <= 0.01 + 1e-9 and d["loc"] <= 0.05
             depth.append(float(w[12]))
     return {"lines": n_want, "lines_got": n_got, "box_agree_share": within / max(n_want, 1),
-            "pose_agree_share": pose_within / max(n_want, 1), "max_abs": worst,
+            "pose_agree_share": pose_within / max(n_want, 1), "max_abs": worst, "agreed_score": agreed_score,
             "depth_range": [min(depth), max(depth)] if depth else None}
