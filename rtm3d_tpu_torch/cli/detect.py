@@ -35,7 +35,9 @@ a batch (which must divide; an export's batch is per rank) and writes
 the result files of its real rows; the master prints the summary after
 a barrier. With ``--int8`` the master calibrates, over the batches one
 process would, and sends the scales to every rank, so that every rank
-serves the same int8 network.
+serves the same int8 network. A config whose ``TPU.MESH_AXES``/
+``MESH_SHAPE`` asks for any other mesh than data parallelism is refused
+(``parallel/dist.py::check_mesh_config``).
 
 ``--int8`` serves the post-training quantized network (``nn/quant.py``,
 ``rtm3d_tpu/cli/detect.py:44-81,170-195,288-410``): activation scales from
@@ -141,6 +143,7 @@ def _detect(args, device) -> dict:
     cfg = load_config(args.model_config, args.set)
     if args.data_path:
         cfg.DATASET.PATH = args.data_path
+    dist.check_mesh_config(cfg)
     # the device dataset cache is a training optimisation (cli/train.py
     # builds it); serving makes one pass over the frames
     cfg.TPU.DEVICE_DATA_CACHE = False

@@ -25,6 +25,9 @@ The losses, and so the best-model decision, are the global batch's on
 every rank. The master alone prints, writes TensorBoard and saves
 ``.pt`` files; under ``TRAINING.USE_ORBAX`` every rank writes the
 collective directory saves (``train/checkpoint.py``).
+A config whose ``TPU.MESH_AXES``/``MESH_SHAPE`` asks for any other mesh,
+the JAX package's ``spatial`` axis for one, is refused with a message
+(``parallel/dist.py::check_mesh_config``).
 
 ``TRAINING.CHECKPOINT_MODE`` is ``start``, ``resume`` (from the
 ``last_checkpoint`` pointer under ``TRAINING.WEIGHTS/<BACKBONE>``, when
@@ -169,6 +172,7 @@ def main(argv=None, *, on_start=None):
 
 def _train(args, device, on_start):
     cfg = setup(args)
+    dist.check_mesh_config(cfg)
     master = dist.is_master()
     say = print if master else (lambda *a, **k: None)
 

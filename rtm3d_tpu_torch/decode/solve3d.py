@@ -156,6 +156,7 @@ def solve_bbox3d(
     ref_loc,
     iters: int = 40,
     prior_weight: float = 0.0,
+    solver=None,
 ) -> Dict[str, torch.Tensor]:
     """Recover 3D boxes for a fixed block of detections.
 
@@ -168,9 +169,13 @@ def solve_bbox3d(
     ``cost`` is always the best PURE-reprojection cost (the reference's
     acceptance quantity), even when ``prior_weight`` > 0 regularises the
     returned ry/dim/loc. Runs on the device of ``v_proj``: the LM kernel on
-    CUDA, the plain LM on the CPU.
+    CUDA, the plain LM on the CPU. ``solver`` takes ``ops/lm_solver.py::
+    lm_solve``'s place (its plain version, ``lm_solve_reference``, for
+    one: the JAX ``use_pallas=False``).
     """
     from rtm3d_tpu_torch.ops.lm_solver import lm_solve
+
+    lm_solve = solver or lm_solve
 
     dev = v_proj.device
     batch_shape = tuple(cls.shape)

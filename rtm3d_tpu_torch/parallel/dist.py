@@ -23,7 +23,10 @@ Not ported, and why:
   loads and holds its own rows (``DataLoader(num_shards=world_size(),
   shard_index=rank())``);
 - the ``spatial`` axis (mesh.py:11-14, 87-94): torch has no stock spatial
-  partitioning of convolutions with halo exchange (ROADMAP.md).
+  partitioning of convolutions with halo exchange (ROADMAP.md). A config
+  that asks for it through ``TPU.MESH_AXES``/``MESH_SHAPE`` is refused by
+  ``check_mesh_config``, which both CLIs call, and not run as something
+  else without a word.
 """
 
 from __future__ import annotations
@@ -101,6 +104,25 @@ def shutdown() -> None:
     """Leave the default process group, if one is initialised."""
     if initialized():
         dist.destroy_process_group()
+
+
+def check_mesh_config(cfg) -> None:
+    """Refuse a mesh the port cannot run: ``TPU.MESH_AXES`` other than
+    ``("data",)``, or a ``TPU.MESH_SHAPE`` other than ``(-1,)`` (every
+    device) or ``(world size,)``. The JAX CLIs build their mesh from both
+    keys (``rtm3d_tpu/cli/train.py:126``, ``cli/detect.py:206``) and can
+    shard the frame's rows on a ``spatial`` axis (``parallel/mesh.py:
+    88-94``); the port's only parallelism is data parallelism over the
+    ranks of torchrun, so any other mesh raises ``ValueError``."""
+    axes = tuple(str(a) for a in cfg.TPU.get("MESH_AXES", ("data",)))
+    shape = tuple(int(s) for s in cfg.TPU.get("MESH_SHAPE", (-1,)))
+    n = world_size()
+    if axes != ("data",) or shape not in ((-1,), (n,)):
+        raise ValueError(
+            f"TPU.MESH_AXES {axes} with TPU.MESH_SHAPE {shape} is not supported: the port runs data parallelism "
+            f"only, one process per device under torchrun (world size here {n}), and the 'spatial' axis of the "
+            "JAX package (rtm3d_tpu/parallel/mesh.py) is not ported. Use MESH_AXES ('data',) with MESH_SHAPE "
+            f"(-1,) or ({n},).")
 
 
 def local_batch_size(global_batch: int) -> int:

@@ -147,20 +147,27 @@ def bench_batch(detect, batch: int, iters: int, device, hw=(H, W)) -> dict:
     return out
 
 
-def int8_model(model, cfg, calib: list, device):
-    """``model`` quantized as the JAX tools quantize it: absmax activation
-    scales over ``calib`` ((B, H, W, 3) float frames on ``device``), on an
-    fp32 copy with TF32 off, then ``TPU.INT8_SKIP``."""
+def act_scales(model, calib: list, device, method: str = "absmax", per_channel=()) -> dict:
+    """``nn/quant.py::calibrate_act_scales`` of ``model`` over ``calib``
+    ((B, H, W, 3) float frames on ``device``), on an fp32 copy with TF32
+    off."""
     from rtm3d_tpu_torch.nn import quant
 
     net = copy.deepcopy(model).to(device=device, dtype=torch.float32).eval()
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        scales = quant.calibrate_act_scales(net, calib)
+        return quant.calibrate_act_scales(net, calib, method=method, per_channel=per_channel)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    scales = quant.skip_scales(scales, tuple(cfg.TPU.get("INT8_SKIP", ())))
+
+
+def int8_model(model, cfg, calib: list, device):
+    """``model`` quantized as the JAX tools quantize it: absmax activation
+    scales over ``calib`` (``act_scales``), then ``TPU.INT8_SKIP``."""
+    from rtm3d_tpu_torch.nn import quant
+
+    scales = quant.skip_scales(act_scales(model, calib, device), tuple(cfg.TPU.get("INT8_SKIP", ())))
     return quant.quantize_model(model, scales)
 
 

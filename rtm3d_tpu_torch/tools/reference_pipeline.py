@@ -101,8 +101,10 @@ def reference_rows(net, image: np.ndarray, K: np.ndarray, cfg) -> dict:
     acceptance (``cost < DETECTOR.RESIDUAL_THRESH``)."""
     with torch.no_grad():
         logits = net(torch.as_tensor(np.ascontiguousarray(image.transpose(2, 0, 1)[None]), dtype=torch.float32))
-    dec = reference_decode(tuple(t.numpy() for t in logits), float(cfg.DETECTOR.SCORE_THRESH),
-                           int(cfg.DETECTOR.TOPK_CANDIDATES), float(cfg.MODEL.DOWN_SAMPLE))[0]
+    # contiguous: a channels_last network (a trained one) gives strided logits
+    dec = reference_decode(tuple(np.ascontiguousarray(t.numpy()) for t in logits),
+                           float(cfg.DETECTOR.SCORE_THRESH), int(cfg.DETECTOR.TOPK_CANDIDATES),
+                           float(cfg.MODEL.DOWN_SAMPLE))[0]
     res_thresh = float(cfg.DETECTOR.RESIDUAL_THRESH)
     rows = {"cls": [], "scores": [], "accepted": [], "bbox2d": [], "ry": [], "dim": [], "loc": []}
     for k in range(len(dec["cls"])):

@@ -28,6 +28,8 @@
   ``import_torch_weights``, :318-372; reference check_point.py:14-92).
 - ``load_detect_weights``: what the detect CLI and ``Detector.from_config``
   load, by file kind (``rtm3d_tpu/cli/detect.py:92-130``).
+- ``strip_checkpoint``: a deploy file of a port checkpoint, the EMA
+  preferred, float32 cast to bfloat16 (``strip_checkpoint``, :178-210).
 
 The JAX package's orbax directories are not read (ROADMAP.md).
 """
@@ -508,6 +510,29 @@ def import_reference_weights(model: nn.Module, state_dict: Mapping[str, torch.Te
             print(f"loaded {key:60s} <- {best_key}")
     model.load_state_dict(new, strict=True)
     return {"loaded": loaded, "missed": missed}
+
+
+def strip_checkpoint(src: str, dst: str, dtype: str = "bfloat16") -> str:
+    """Write a deploy file of ``src`` to ``dst`` and return ``dst``: one
+    state dict of the model's parameters (the EMA shadow in their place
+    when the run tracked one, as the JAX ``strip_checkpoint`` prefers it,
+    :187-193, and the reference CheckPointer, check_point.py:122) and its
+    BN statistics; the optimizer state, step and epoch are dropped.
+    ``src`` is a port ``CheckPointer`` file or directory (any other torch
+    file is read as a reference checkpoint, ``load_torch_weights``).
+    Float32 tensors are cast to ``dtype`` (``""`` keeps float32), as the
+    reference casts its pretrained file to half (utils/utils.py:89-110);
+    ``num_batches_tracked`` stays int64. ``load_detect_weights`` serves the
+    file as it serves a reference ``.pt``: each tensor by name, cast to the
+    model's dtype."""
+    sd, _ = load_torch_weights(src)
+    if dtype:
+        target = getattr(torch, dtype, None)
+        if not isinstance(target, torch.dtype) or not target.is_floating_point:
+            raise ValueError(f"strip_checkpoint: {dtype!r} is not a torch floating dtype")
+        sd = {k: v.to(target) if v.dtype == torch.float32 else v for k, v in sd.items()}
+    torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()}, dst)
+    return dst
 
 
 def load_detect_weights(path: Optional[str], model: nn.Module) -> str:

@@ -15,6 +15,11 @@ flax, the suffix-matched import of a partial ``.pt``, and the EMA that a port
 - A port ``CheckPointer`` file serves its EMA through
   ``Detector.from_config`` (a model read with its raw parameters would
   serve other weights).
+- The port's ``strip_checkpoint`` of a port file holds the EMA and the BN
+  statistics cast to bfloat16 (or float32 as they are), no optimizer
+  state, and ``load_detect_weights`` serves it; of the same weights as the
+  JAX strip (the fixture's EMA through ``state_dict_from_jax``) it equals
+  that strip bit for bit.
 """
 
 import os
@@ -220,3 +225,55 @@ def test_port_checkpoint_serves_its_ema(tmp_path):
     assert not ref_ema and ref_sd.keys() == state.model.state_dict().keys()
     assert torch.equal(ref_sd["backbone.base_layer.0.weight"], state.model.state_dict()["backbone.base_layer.0.weight"])
     assert os.path.basename(open(tmp_path / "last_checkpoint").read()) == "model_best.pt"
+
+
+def port_state_of(cfg, variables, state):
+    """A port train state holding the JAX ``state``'s parameters and BN
+    statistics, with its EMA shadow."""
+    model = create_model(cfg)
+    model.load_state_dict(ckpt.state_dict_from_jax(variables, model))
+    port = TrainState.create(model, cfg, device="cpu", with_ema=True)
+    ema = ckpt.state_dict_from_jax({"params": jax.device_get(state.ema_params),
+                                    "batch_stats": variables["batch_stats"]}, model)
+    with torch.no_grad():
+        for k, v in port.ema.items():
+            v.copy_(ema[k])
+    return port, ema
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", ""])
+def test_strip_checkpoint_keeps_the_ema_and_bn_statistics(saved, tmp_path, dtype):
+    cfg, variables, state = saved[:3]
+    port, ema = port_state_of(cfg, variables, state)
+    src = ckpt.CheckPointer(str(tmp_path)).save("model_best", port)
+    dst = ckpt.strip_checkpoint(src, str(tmp_path / "deploy.pt"), dtype=dtype)
+    got = torch.load(dst, weights_only=True)
+    want_dtype = torch.bfloat16 if dtype else torch.float32
+    assert got.keys() == port.model.state_dict().keys()
+    for k, v in port.model.state_dict().items():
+        want = ema[k] if k in port.ema else v
+        if v.dtype == torch.float32:
+            assert got[k].dtype == want_dtype and torch.equal(got[k], want.to(want_dtype)), k
+        else:
+            assert torch.equal(got[k], v), k
+    assert os.path.getsize(dst) < os.path.getsize(src) / (3 if dtype else 1.5)  # no optimizer state
+    model = create_model(cfg, torch.Generator().manual_seed(9))
+    line = ckpt.load_detect_weights(dst, model)
+    assert line.startswith(f"imported {len(got) - sum(k.endswith('num_batches_tracked') for k in got)} tensors; 0")
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, got[k].to(v.dtype)), k
+
+
+def test_strip_checkpoint_equals_the_jax_strip(saved, tmp_path):
+    cfg, variables, state, _, _, stripped = saved
+    port, _ = port_state_of(cfg, variables, state)
+    src = ckpt.CheckPointer(str(tmp_path)).save("model_best", port)
+    got = torch.load(ckpt.strip_checkpoint(src, str(tmp_path / "deploy.pt")), weights_only=True)
+    # the JAX deploy file's bfloat16 leaves, as float32 values (exact)
+    want, used_ema = ckpt.load_flax_checkpoint(stripped, create_model(cfg))
+    assert not used_ema and got.keys() == want.keys()
+    for k in want:
+        if not k.endswith("num_batches_tracked"):
+            assert got[k].dtype == torch.bfloat16 and torch.equal(got[k].float(), want[k]), k
+    with pytest.raises(ValueError, match="not a torch floating dtype"):
+        ckpt.strip_checkpoint(src, str(tmp_path / "x.pt"), dtype="int8")
