@@ -217,10 +217,12 @@ phases of one JSON line each; any failure exits non-zero:
            (docs/experiments/prod_r5_report.json: ResNet-18, input 512 on
            512x384 frames, b8, lr 1e-3, seed 20, 64 train frames served,
            no augmentation, the int8 leg, a bootstrap of 100), its 64
-           train frames cut to AP_PROD["num_train"] and its 10,000 steps to
-           AP_PROD_STEPS with 10x drops at AP_PROD_LR_DROPS (the last two
-           phases), trained under TF32 and served with TF32 off, in a fresh
-           work dir (the report to chip_smoke_out/ap_parity_production.json).
+           train frames cut to AP_PROD["num_train"], its 10,000 steps to
+           AP_PROD_STEPS and its 10x drops at 5,000 and 8,000 to
+           AP_PROD_LR_DROPS (the last two phases; PARITY.md gives the drops,
+           the JAX report does not), trained under TF32 and served with
+           TF32 off, in a fresh work dir (the report to
+           chip_smoke_out/ap_parity_production.json).
            Gates (AP_PROD_GATE): the last loss under a hundredth of the
            first; one splat launch a step, 2 LM launches a port and int8
            batch, one quantize and one conv_s8 launch an int8 conv an int8
@@ -239,6 +241,24 @@ phases of one JSON line each; any failure exits non-zero:
            within 1e-5; the ladder's fp32 rung writes results_port's lines;
            every int8_variants row with one of each int8 kernel an int8
            conv a batch and 2 LM launches a batch.
+  ap_parity_side_by_side  python -m rtm3d_tpu_torch.tools.ap_parity (the
+           side-by-side mode, run_ap_parity) at the JAX 100-step record's
+           recipe (docs/experiments/ap_parity_100step_report.json: ResNet-18,
+           input 256 on 256x192 frames, 64 train and 16 test frames, b8, lr
+           1e-3, seed 20, 100 steps, drift over 50), in a fresh work dir:
+           the port (TF32) and the seed-5 torch twin (fp32, the reference's
+           loss and optimizer) trained from the twin's init on the same
+           augmented batches, then the port, reference, int8 and samew legs
+           (the report to chip_smoke_out/ap_parity_side_by_side.json).
+           Gates (AP_SBS_GATE): both losses fall; the reference leg's first
+           loss within a stated tolerance of the record's 1,218.7838; the
+           JAX harness's drift bounds (drift[0] < 5e-3, the first 10 steps
+           < 5e-2, every step < 0.5, the last losses within 25%); two
+           splat launches a step (the port's step, the reference leg's
+           target build); 2 LM launches a port, int8 and samew batch; one
+           quantize and one conv_s8 launch an int8 conv an int8 batch. The
+           twin's SHA-256 against the CPU's (tools/twin.py::TWIN_SHA256)
+           is recorded: if it differs, the first loss is not comparable.
   The device line also carries a probe: NCCL's version, whether gloo takes
   CUDA tensors in all_reduce and broadcast, whether tensorstore and orbax
   import.
@@ -2069,16 +2089,16 @@ def real_parity_phase(tree: str, weights: str) -> dict:
 # -- the production same-weights campaign (tools/ap_parity.py --production) and the tools on its work dir --
 # the JAX record's recipe (docs/experiments/prod_r5_report.json): ResNet-18, input 512 (512x384 frames and
 # input), b8, lr 1e-3, seed 20, the train frames served (eval split train), no augmentation, the int8 leg.
-# Cut: its 64 train frames to AP_PROD["num_train"] and its 10,000 steps to AP_PROD_STEPS, with 10x drops at
-# AP_PROD_LR_DROPS. At the full recipe the port accepts 5 lines, not the JAX record's 107 (ROADMAP.md, fault
-# (l)). Cuts tried on an H100 (PERF.md, Findings): at a constant LR no line passes the residual gate; with the
+# Cut: its 64 train frames to AP_PROD["num_train"] and its 10,000 steps to AP_PROD_STEPS, its 10x drops at 5,000
+# and 8,000 (PARITY.md; the JAX report does not record them) to AP_PROD_LR_DROPS. Cuts tried on an H100 (PERF.md,
+# Findings): at a constant LR no line passes the residual gate; with the
 # drops the port accepts nearly every labelled object, the scipy reference strands on 4 of the first 8 frames'
 # objects (8 frames: 14 against 10, past the 25% gate), and int8 accepted lines at 8 and 12 frames (1; 6-7)
 # but none at 10 or 16; so 12 frames (22 labelled objects; 21-22 against 17-18)
 AP_PROD = dict(input_size=512, batch=8, lr=1e-3, seed=20, backbone="RESNET-18", num_train=12, num_test=32,
                train_augment=False, eval_split="train", bootstrap=100)
 AP_PROD_STEPS, AP_PROD_LR_DROPS = 3000, (2200, 2700)
-AP_PROD_FULL = {"steps": 10000, "num_train": 64}  # the JAX record's
+AP_PROD_FULL = {"steps": 10000, "num_train": 64, "lr_drops": (5000, 8000)}  # the JAX record's
 # ap_parity_production: the loss falls 100x; each float leg accepts a quarter of the split's labelled
 # Car/Pedestrian/Cyclist objects; the float legs' counts within 25% of the larger (JAX record: 107 and 93);
 # the int8 leg accepts; no moderate cell's port-minus-reference delta below -10 points (JAX: all >= 0)
@@ -2126,7 +2146,7 @@ def ap_parity_production_phase(smi: str) -> dict:
     rec = {"recipe": {**AP_PROD, "steps": AP_PROD_STEPS, "lr_drops": list(AP_PROD_LR_DROPS)},
            "cut": {"steps": f"{AP_PROD_STEPS} of the JAX record's {AP_PROD_FULL['steps']}",
                    "num_train": f"{AP_PROD['num_train']} of the JAX record's {AP_PROD_FULL['num_train']}",
-                   "lr_drops": f"10x at {list(AP_PROD_LR_DROPS)} (the JAX record: constant)"},
+                   "lr_drops": f"10x at {list(AP_PROD_LR_DROPS)} of the JAX record's {list(AP_PROD_FULL['lr_drops'])}"},
            "seconds": seconds, "train": train, "loss_first_last": out["loss_first_last"], "accepted_counts": counts,
            "labelled_objects": labels, "legs": legs, "moderate": moderate, "gate": AP_PROD_GATE,
            "bootstrap_car_bbox": out["bootstrap"]["Car_bbox_moderate"], "nvidia_smi": smi}
@@ -2223,6 +2243,71 @@ def ap_parity_tools_phase(work: str) -> dict:
           + sum(r["launches"]["lm"] for r in rows.values()))
     return {"launches": {"lm": lm, "conv_s8": sum(r["launches"]["conv_s8"] for r in rows.values()),
                          "quantize": sum(r["launches"]["quantize"] for r in rows.values())}, "record": rec}
+
+
+# ap_parity_side_by_side: the JAX 100-step record's recipe (docs/experiments/ap_parity_100step_report.json)
+AP_SBS = dict(input_size=256, num_train=64, num_test=16, steps=100, batch=8, lr=1e-3, seed=20, drift_steps=50,
+              backbone="RESNET-18")
+AP_SBS_RECORD = "docs/experiments/ap_parity_100step_report.json"
+# the JAX harness's bounds (tests/test_ap_parity.py:41-47); the reference leg's first loss against the record's
+# 1,218.7838: 3.9e-5 relative on an H100 (cv2 4.13, cuDNN fp32), 3.6e-6 on the CPU (cv2 5.0; PERF.md §6)
+AP_SBS_GATE = {"drift0": 5e-3, "first10": 5e-2, "every": 0.5, "last_rel": 0.25, "first_loss_rel": 1e-4}
+
+
+def ap_parity_side_by_side_phase(smi: str) -> dict:
+    """``run_ap_parity`` (rtm3d_tpu_torch/tools/ap_parity.py) at AP_SBS in a
+    fresh work dir, gated by AP_SBS_GATE and the launch counts (module
+    docstring). The report to chip_smoke_out/ap_parity_side_by_side.json."""
+    from rtm3d_tpu_torch.tools import ap_parity, twin
+
+    work = os.path.abspath(os.path.join("chip_smoke_out", "ap_parity_side_by_side"))
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = ap_parity.run_ap_parity(work, save_every=AP_SBS["steps"],
+                                  progress=lambda *a: print(*a, file=sys.stderr, flush=True), **AP_SBS)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join("chip_smoke_out", "ap_parity_side_by_side.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    record = json.load(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), AP_SBS_RECORD)))
+    want_first = record["loss_torch_first_last"][0]
+    (p0, p1), (t0_, t1) = out["loss_port_first_last"], out["loss_torch_first_last"]
+    drift, legs, train = out["loss_drift_curve"], out["legs"], out["train"]
+    q = legs["int8"]
+    want_int8 = q["int8_convs"] * q["batches"]
+    first_rel = abs(t0_ - want_first) / want_first
+    rec = {"recipe": AP_SBS, "seconds": seconds, "train": train,
+           "loss_port_first_last": [p0, p1], "loss_torch_first_last": [t0_, t1],
+           "record_first_loss": {"torch": want_first, "jax": record["loss_jax_first_last"][0], "rel": first_rel},
+           "drift0": drift[0], "max_drift_first_10": max(drift[:10]),
+           f"max_drift_first_{AP_SBS['drift_steps']}": max(drift), "final_drift": out["final_drift"],
+           "twin_sha256": out["config"]["twin_sha256"],
+           "twin_sha256_matches_cpu": out["config"]["twin_sha256"] == twin.TWIN_SHA256[AP_SBS["backbone"]],
+           "legs": legs, "accepted_counts": out["accepted_counts"],
+           "moderate": {k: c for k, c in out["ap"].items() if k.endswith("_moderate")}, "gate": AP_SBS_GATE,
+           "nvidia_smi": smi}
+    emit("ap_parity_side_by_side", **rec)
+    g = AP_SBS_GATE
+    if not (p1 < p0 and t1 < t0_) or first_rel > g["first_loss_rel"]:
+        raise AssertionError(f"ap_parity_side_by_side: a loss did not fall, or the reference leg's first loss is "
+                             f"more than {g['first_loss_rel']} from the record's {want_first}: {rec}")
+    if (drift[0] >= g["drift0"] or max(drift[:10]) >= g["first10"] or max(drift) >= g["every"]
+            or abs(p1 - t1) / max(abs(t1), 1e-9) >= g["last_rel"]):
+        raise AssertionError(f"ap_parity_side_by_side: the drift leaves the JAX harness's bounds: {rec}")
+    steps = AP_SBS["steps"]
+    if (train["steps_run"] != steps or train["port"]["splat_launches"] != steps
+            or train["torch"]["splat_launches"] != steps
+            or any(legs[k]["lm_launches"] != 2 * legs[k]["batches"] for k in ("port", "int8", "samew"))
+            or q["conv_s8_launches"] != want_int8 or q["quantize_launches"] != want_int8 or want_int8 == 0):
+        raise AssertionError("ap_parity_side_by_side: other than one splat launch a step in each leg's target "
+                             "build, 2 LM launches a port, int8 and samew batch, or one of each int8 kernel an "
+                             f"int8 conv a batch: {rec}")
+    if train["port"]["tf32"] != {"cudnn": True, "matmul": True} or \
+            train["torch"]["tf32"] != {"cudnn": False, "matmul": False}:
+        raise AssertionError(f"ap_parity_side_by_side: the legs did not train under their TF32 flags: {train}")
+    return {"launches": {"lm": sum(legs[k]["lm_launches"] for k in ("port", "int8", "samew")),
+                         "conv_s8": q["conv_s8_launches"], "quantize": q["quantize_launches"],
+                         "splat": train["port"]["splat_launches"] + train["torch"]["splat_launches"]},
+            "record": rec}
 
 
 # -- data parallelism (parallel/dist.py): two gloo ranks sharing the card, and torchrun at world size 1 --
@@ -3106,6 +3191,8 @@ def main() -> int:
     phase_done("ap_parity_production")
     ap_tools = ap_parity_tools_phase(ap_prod["work"])
     phase_done("ap_parity_tools")
+    ap_sbs = ap_parity_side_by_side_phase(smi)
+    phase_done("ap_parity_side_by_side")
     emit("seconds", **seconds, total=round(sum(seconds.values()), 2))
 
     pair = (first, second)
@@ -3113,11 +3200,13 @@ def main() -> int:
     int8_launches = {k: {"quantize": v["quantize"], "conv_s8": v["conv_s8"]} for k, v in int8_cli["launches"].items()}
     int8_launches["latency_int8"] = {k: latency["launches"][k] for k in ("quantize", "conv_s8")}
     int8_launches["real_parity_int8"] = parity["int8_launches"]
-    for name, rec in (("ap_parity_production", ap_prod), ("ap_parity_tools", ap_tools)):
+    for name, rec in (("ap_parity_production", ap_prod), ("ap_parity_tools", ap_tools),
+                      ("ap_parity_side_by_side", ap_sbs)):
         int8_launches[name] = {k: rec["launches"][k] for k in ("quantize", "conv_s8")}
     tool_lm = {"bench": benched["lm_launches"], "latency": latency["launches"]["lm"],
                "real_parity": parity["lm_launches"], "ap_parity_production": ap_prod["launches"]["lm"],
-               "ap_parity_tools": ap_tools["launches"]["lm"]}
+               "ap_parity_tools": ap_tools["launches"]["lm"],
+               "ap_parity_side_by_side": ap_sbs["launches"]["lm"]}
     fwd = int8_kernels["forward"]
     print(json.dumps({"kernels": [{
         "name": "lm_solver",
@@ -3163,10 +3252,12 @@ def main() -> int:
                      + sum(r["splat_launches"] for r in host_variants.values())
                      + resnet["launches"]["resnet18_train"] + resnet["launches"]["stats"]
                      + train_benched["splat_launches"] + ap_prod["launches"]["splat"]
+                     + ap_sbs["launches"]["splat"]
                      + ddp_fp32["splat_launches"] + ddp_full["splat_launches"] + ddp_cli["splat_launches"]),
         "launches_by_path": {"train": trained["splat_launches"], "remat": remat["splat_launches"],
                              "bench_train": train_benched["splat_launches"],
                              "ap_parity_production": ap_prod["launches"]["splat"],
+                             "ap_parity_side_by_side": ap_sbs["launches"]["splat"],
                              **{k: r["splat_launches"] for k, r in from_files.items()},
                              **{k: r["splat_launches"] for k, r in host_variants.items()},
                              "resnet18_train": resnet["launches"]["resnet18_train"],

@@ -1,29 +1,80 @@
-"""Same-weights AP parity at the production gates, on a checkpoint that detects.
+"""AP parity of the port against the reference: the port of ``tools/ap_parity.py``.
 
-Port of the production mode of ``tools/ap_parity.py``
-(``run_production_parity``, :477-721, and its serving legs, :729-779). It
-trains the port alone on the synthetic fixture until the production gates
-fire (score >= ``DETECTOR.SCORE_THRESH`` 0.25, a 3D fit of residual below
+Two modes, as in the JAX tool.
+
+**Side-by-side** (``run_ap_parity``, the JAX tool's :228-474). The port
+and the torch twin (``tools/twin.py``, the reference network drawn under
+``torch.manual_seed(5)``) train from ONE init, the twin's, on the SAME
+batches: the port through its own train step (``train/state.py``,
+``train/step.py::make_train_step``: targets by the splat kernel, the
+port's loss and Adamax groups), the twin with the reference's training
+semantics (``tools/reference_train.py``: the dynamic-gather loss and the
+reference's parameter groups) on the targets ``data/targets.py::
+build_targets`` builds for the same batch, as the JAX tool hands the twin
+its JAX targets (:326, :390-392). The per-step loss drift between the two
+measures what the port's training does differently from the reference's
+over ``steps`` updates. Then each leg is served through its own pipeline:
+
+  results_port:  the trained port through the port's pipeline (batched
+                 decode, the LM kernel's two launches a batch),
+  results_torch: the trained twin through the reference pipeline
+                 (``tools/reference_pipeline.py``: a per-image decode and
+                 a scipy L-BFGS-B solve per detection, on the host, fp32),
+  results_int8:  the trained port as an int8 network (absmax scales over
+                 the train split's first two batches, ``TPU.INT8_SKIP``;
+                 the ``conv_s8`` and ``quantize`` kernels),
+  results_samew: the trained TWIN's weights in a port model through the
+                 port's pipeline: the same weights as results_torch, so
+                 ``delta_samew`` (samew minus torch) is the serving paths'
+                 AP gap on trained weights, with the training's
+                 divergence cancelled.
+
+Where each leg trains: the port under cuDNN's and cuBLAS's TF32, the
+counterpart of the TPU's default precision (single bf16 passes) that
+trained the JAX leg of the records; the twin in fp32 with TF32 off on the
+same device. The JAX records' torch leg trained in fp32 on the host, only
+because the TPU was busy with JAX; on one card both legs share it. The
+data: the standard train augmentation (``augment="auto"``) on
+host-normalised float frames (``TPU.NORMALIZE_ON_DEVICE`` off, :312,
+:379), one deterministic ``DataLoader(ds, batch, shuffle=True,
+seed=seed)`` read by ``step_stream``. Serving runs with TF32 off.
+
+    python -m rtm3d_tpu_torch.tools.ap_parity --steps 1200 --input-size 256 --batch 8 --num-train 64 \\
+        --num-test 16 --bootstrap 500 [--score-thresh 0.05 --residual-thresh 1e9 --min-overlap 0.3 \\
+        --min-height 0] [--rescore-only] [--work-dir DIR] [--out report.json] [--device cpu]
+
+The report has the JAX tool's keys, with its ``jax`` leg named ``port``:
+``config`` (the card and its power limit), ``loss_port_first_last``,
+``loss_torch_first_last``, ``loss_drift_curve`` (|port - torch| / |torch|
+over the first ``drift_steps`` steps), ``max_drift_first_<drift_steps>``,
+``final_drift``, ``ap`` (rows ``port``, ``torch``, ``delta``, ``int8``,
+``delta_int8``, ``samew``, ``delta_samew``) and ``bootstrap``; beside
+them ``accepted_counts`` (each leg's result lines), ``legs`` (each serving
+leg's seconds, batches and launches) and
+``train`` (each training leg's seconds, ms a step, splat launches and
+TF32 flags). Resume as the JAX tool (:343-422): a mid checkpoint of both
+legs every ``save_every`` steps (``train_ckpt.pt``: the port's state, the
+twin, its optimizer, the step and both curves); at the end
+``port_final.pt``, ``twin_final.pt`` and ``losses.json`` (keys ``port``
+and ``torch``), with which a second call serves without training.
+``rescore_only`` scores the four ``results_*`` directories again under
+other ``min_overlap``/``min_height`` bars, training and serving nothing
+(:260-296).
+
+**Production** (``run_production_parity``, the JAX tool's :477-721 and
+its serving legs, :729-779). It trains the port alone on the synthetic
+fixture until the production gates fire (score >=
+``DETECTOR.SCORE_THRESH`` 0.25, a 3D fit of residual below
 ``RESIDUAL_THRESH`` 0.1), then serves the SAME trained parameters through
-
-  results_port:  the port's pipeline (batched decode, the LM kernel's two
-                 launches a batch; fp32 with TF32 off),
-  results_torch: the reference pipeline (``tools/reference_pipeline.py``:
-                 a per-image decode and a scipy L-BFGS-B solve per
-                 detection, on the host, fp32),
-  results_int8:  the port's pipeline on the int8 network (absmax scales
-                 over the train split's first two batches under the
-                 serving pixel path, ``TPU.INT8_SKIP``; the ``conv_s8``
-                 and ``quantize`` kernels), with the 3D solve,
-
-and scores every (class, metric, difficulty) cell at the true gates. The
-weights are identical, so ``delta`` (port minus reference) is the serving
-path's own AP difference. The legs serve the trained parameters, not an
-EMA (``TRAINING.EMA`` is off in this config, as in the JAX tool, :670).
+the port leg, the reference pipeline and the int8 leg, and scores every
+(class, metric, difficulty) cell at the true gates. The weights are
+identical, so ``delta`` (port minus reference) is the serving path's own
+AP difference. The legs serve the trained parameters, not an EMA
+(``TRAINING.EMA`` is off in this config, as in the JAX tool, :670).
 
     python -m rtm3d_tpu_torch.tools.ap_parity --production --input-size 512 --steps 10000 --batch 8 \\
         --num-train 64 --num-test 32 --no-train-augment --eval-split train --bootstrap 500 \\
-        [--work-dir DIR] [--lr-drops 6000,9000] [--out report.json] [--device cpu]
+        [--work-dir DIR] [--lr-drops 5000,8000] [--init weights.pt] [--out report.json] [--device cpu]
 
 The report has the JAX tool's keys, ``config``, ``loss_first_last``,
 ``accepted_counts``, ``ap`` and ``bootstrap``, with the legs named as
@@ -38,7 +89,11 @@ Training, as the JAX tool trains (:540-576): ``DATASET.CACHE_IMAGES``
 (each PNG decoded once) and ``TPU.NORMALIZE_ON_DEVICE`` (uint8 batches),
 with ``device_warp`` also ``TPU.DEVICE_WARP`` and ``TPU.DEVICE_DATA_CACHE``;
 ``train_augment=False`` trains on the test transform's clean stream;
-``lr_drops`` are 10x drops of the learning rate at those updates. The step
+``lr_drops`` are 10x drops of the learning rate at those updates;
+``init`` is a state dict file to start from in place of the port's
+seed-``seed`` draw (the JAX tool's draw, written through
+``train/checkpoint.py::state_dict_from_jax``, starts the port where the
+JAX record started). The step
 is ``train/step.py::make_train_step`` (targets by the splat kernel, one
 launch a step). It runs under cuDNN's and cuBLAS's TF32, the counterpart
 of the TPU's default precision (single bf16 passes), which trained the JAX
@@ -59,8 +114,6 @@ Frames: the fixture's frames are made at the input's size (a 4:3 frame
 original frame and the 2D boxes of ``real_parity``'s legs (written in the
 original frame) are the JAX tool's (written in the input frame).
 
-The side-by-side mode (``run_ap_parity``, both stacks trained from one
-init) is not ported yet: ROADMAP.md, queue A, item 3.
 """
 
 from __future__ import annotations
@@ -74,6 +127,7 @@ import time
 import torch
 
 from rtm3d_tpu_torch.config import default_config
+from rtm3d_tpu_torch.data import targets as targets_mod
 from rtm3d_tpu_torch.data.kitti import create_dataset
 from rtm3d_tpu_torch.data.loader import DataLoader, prefetch_to_device
 from rtm3d_tpu_torch.data.synthetic import generate_kitti
@@ -84,12 +138,20 @@ from rtm3d_tpu_torch.tools.bench_latency import KFNS, int8_model
 from rtm3d_tpu_torch.tools.real_parity import (
     bootstrap_cis, count_accepted, detect_port, detect_reference, int8_calib, score_legs,
 )
+from rtm3d_tpu_torch.tools.reference_train import reference_loss, reference_optimizer, to_reference_targets
+from rtm3d_tpu_torch.tools.twin import build_torch_twin, load_twin, state_dict_sha256
 from rtm3d_tpu_torch.train.state import TrainState
 from rtm3d_tpu_torch.train.step import make_train_step, resolve_device
 from rtm3d_tpu_torch.utils.measure import nvidia_smi
 
 BACKBONES = tuple(KFNS)
 LEGS = ("port", "torch", "int8")
+SIDE_BY_SIDE_LEGS = ("port", "torch", "int8", "samew")
+# the defaults of each mode's command line (the JAX tool's, :866-870, and run_production_parity's)
+MODE_DEFAULTS = {
+    "side_by_side": {"steps": 300, "input_size": 256, "num_test": 16},
+    "production": {"steps": 4000, "input_size": 512, "num_test": 32},
+}
 
 
 def make_config(data_path: str, input_size: int, batch: int, lr: float, backbone: str = "RESNET-18"):
@@ -115,13 +177,16 @@ def make_config(data_path: str, input_size: int, batch: int, lr: float, backbone
     return cfg
 
 
-def fixture(work_dir: str, input_size: int, num_train: int, num_test: int, seed: int) -> str:
+def fixture(work_dir: str, input_size: int, num_train: int, num_test: int, seed: int, img_hw=None) -> str:
     """``tools/ap_parity.py::_fixture`` (:128-145): the synthetic KITTI tree
-    under ``work_dir/kitti``, 4:3 frames ``input_size`` wide (so the ground
-    truth's pixel heights scale with the input), up to 4 objects a frame."""
+    under ``work_dir/kitti``, up to 4 objects a frame, of (H, W) ``img_hw``
+    frames, by default 4:3 frames ``input_size`` wide (so the ground
+    truth's pixel heights scale with the input)."""
     os.makedirs(work_dir, exist_ok=True)
+    if img_hw is None:
+        img_hw = (3 * input_size // 4, input_size)
     return generate_kitti(os.path.join(work_dir, "kitti"), num_train=num_train, num_test=num_test,
-                          img_hw=(3 * input_size // 4, input_size), max_objs=4, seed=seed)
+                          img_hw=tuple(img_hw), max_objs=4, seed=seed)
 
 
 def step_stream(loader, steps: int, start_step: int):
@@ -147,10 +212,20 @@ def _save_atomic(obj, path: str) -> None:
     os.replace(path + ".tmp", path)
 
 
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def _card(device) -> dict:
     if device.type != "cuda":
         return {"name": "cpu", "nvidia_smi": None}
     return {"name": torch.cuda.get_device_name(device), "nvidia_smi": nvidia_smi()}
+
+
+def tf32_flags() -> dict:
+    """cuDNN's and cuBLAS's TF32 flags as they stand."""
+    return {"cudnn": torch.backends.cudnn.allow_tf32, "matmul": torch.backends.cuda.matmul.allow_tf32}
 
 
 class tf32_mode:
@@ -169,11 +244,14 @@ class tf32_mode:
 
 
 def train_port(cfg, ds, work_dir: str, steps: int, batch: int, seed: int, resume: bool, save_every: int,
-               device, progress) -> tuple:
+               device, progress, init: dict | None = None) -> tuple:
     """Train the port on ``ds`` for ``steps`` steps (or resume, or skip),
-    as ``run_production_parity`` does (:583-675). Returns (the trained
+    as ``run_production_parity`` does (:583-675), from the state dict
+    ``init`` or else the port's seed-``seed`` draw. Returns (the trained
     model, the loss of every step, the record of this call's training)."""
     model = create_model(cfg, torch.Generator().manual_seed(seed))
+    if init is not None:
+        model.load_state_dict(init, strict=True)
     final = os.path.join(work_dir, "port_final.pt")
     mid = os.path.join(work_dir, "train_ckpt.pt")
     losses_path = os.path.join(work_dir, "losses.json")
@@ -223,8 +301,7 @@ def train_port(cfg, ds, work_dir: str, steps: int, batch: int, seed: int, resume
                 _save_atomic({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
                               "step": state.step, "updates": state.updates, "losses": losses}, mid)
         drain()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _sync(device)
         seconds = time.perf_counter() - t0
     _save_atomic(state.model.state_dict(), final)
     with open(losses_path, "w") as f:
@@ -236,14 +313,18 @@ def train_port(cfg, ds, work_dir: str, steps: int, batch: int, seed: int, resume
     return state.model, losses, record
 
 
-def serve_legs(cfg, model, eval_ds, calib_ds, batch: int, work_dir: str, device, progress) -> tuple:
+def serve_legs(cfg, model, eval_ds, calib_ds, batch: int, work_dir: str, device, progress, reference=None,
+               samew=None) -> tuple:
     """The JAX tool's ``_serve_legs`` (:729-748) on the port: the port
-    leg, the reference leg and the int8 leg of ``model`` over ``eval_ds``
-    into ``work_dir/results_{port,torch,int8}``; the int8 scales over
-    ``calib_ds``'s first two batches (``_int8_apply``, :760-779). The port
-    and int8 legs run with TF32 off. Returns (the result dirs, each leg's
-    record)."""
-    res = {leg: os.path.join(work_dir, f"results_{leg}") for leg in LEGS}
+    leg and the int8 leg of ``model`` and the reference leg of
+    ``reference`` (by default ``model``: the same weights) over
+    ``eval_ds`` into ``work_dir/results_{port,int8,torch}``, and with
+    ``samew`` (a port model) the port's pipeline on it into
+    ``results_samew``; the int8 scales over ``calib_ds``'s first two
+    batches (``_int8_apply``, :760-779). The port, int8 and samew legs
+    run with TF32 off. Returns (the result dirs, each leg's record)."""
+    res = {leg: os.path.join(work_dir, f"results_{leg}")
+           for leg in (SIDE_BY_SIDE_LEGS if samew is not None else LEGS)}
     legs = {}
     with tf32_mode(False):
         t0 = time.perf_counter()
@@ -257,8 +338,13 @@ def serve_legs(cfg, model, eval_ds, calib_ds, batch: int, work_dir: str, device,
         legs["int8"].update(seconds=time.perf_counter() - t0, conv_s8_launches=int8_conv.conv_s8.launches,
                             quantize_launches=int8_conv.quantize.launches, int8_convs=int8_convs(qmodel))
         progress(f"int8 leg done: {legs['int8']}")
+        if samew is not None:
+            t0 = time.perf_counter()
+            legs["samew"] = detect_port(cfg, samew, eval_ds, batch, res["samew"], device)
+            legs["samew"]["seconds"] = time.perf_counter() - t0
+            progress(f"samew leg done: {legs['samew']}")
     t0 = time.perf_counter()
-    detect_reference(cfg, model, eval_ds, res["torch"])
+    detect_reference(cfg, model if reference is None else reference, eval_ds, res["torch"])
     legs["torch"] = {"seconds": time.perf_counter() - t0}
     progress(f"reference leg done: {legs['torch']}")
     return res, legs
@@ -286,17 +372,211 @@ def serving_datasets(data: str, cfg, eval_split: str, aug, img_size) -> tuple:
     return eval_ds, calib_ds
 
 
+def train_side_by_side(cfg, ds, model, twin, work_dir: str, steps: int, batch: int, seed: int, resume: bool,
+                       save_every: int, device, progress) -> tuple:
+    """Train the port's ``model`` and the reference's ``twin`` side by side
+    for ``steps`` steps on ``ds``'s deterministic stream (or resume, or
+    skip: the module docstring), the JAX tool's :330-422. Each step the
+    port's train step runs under TF32 on the batch, then the reference leg
+    in fp32: ``build_targets`` for the batch (one splat launch),
+    ``reference_loss`` and ``reference_optimizer``'s update. Returns (the
+    trained port model, the trained twin, the port's and the reference's
+    loss at every step, the record of this call's training)."""
+    final_p, final_t = os.path.join(work_dir, "port_final.pt"), os.path.join(work_dir, "twin_final.pt")
+    mid = os.path.join(work_dir, "train_ckpt.pt")
+    losses_path = os.path.join(work_dir, "losses.json")
+    if resume and all(os.path.exists(p) for p in (final_p, final_t, losses_path)):
+        with open(losses_path) as f:
+            curves = json.load(f)
+        if len(curves["port"]) >= steps:
+            progress(f"resuming: trained weights + {len(curves['port'])}-step curves found")
+            model.load_state_dict(torch.load(final_p, map_location="cpu", weights_only=True))
+            twin.load_state_dict(torch.load(final_t, map_location="cpu", weights_only=True))
+            return model.to(device), twin.to(device), curves["port"], curves["torch"], {"steps_run": 0}
+    state = TrainState.create(model, cfg, device=device)
+    twin.to(device).train()
+    s = cfg.SOLVER
+    topt = reference_optimizer(twin, s.BASE_LR, s.WEIGHT_DECAY, s.WEIGHT_DECAY_BIAS, s.WEIGHT_DECAY_NORM,
+                               s.BIAS_LR_FACTOR)
+    step_i, loss_p, loss_t = 0, [], []
+    if resume and os.path.exists(mid):
+        saved = torch.load(mid, map_location="cpu", weights_only=True)
+        state.model.load_state_dict(saved["model"])
+        state.optimizer.load_state_dict(saved["optimizer"])
+        state.step, state.updates = saved["step"], saved["updates"]
+        twin.load_state_dict(saved["twin"])
+        topt.load_state_dict(saved["twin_optimizer"])
+        loss_p, loss_t = list(saved["loss_port"]), list(saved["loss_torch"])
+        step_i = state.step
+        progress(f"mid-train resume at step {step_i}")
+    loader = DataLoader(ds, batch, shuffle=True, seed=seed, num_shards=1, shard_index=0)
+    train_step = make_train_step(cfg, device=device)
+    d = float(cfg.MODEL.DOWN_SAMPLE)
+    feat_hw = (int(cfg.INPUT_SIZE[1]) // int(d), int(cfg.INPUT_SIZE[0]) // int(d))
+    num_classes = len(cfg.DATASET.OBJs)
+    first = step_i
+    seconds = {"port": 0.0, "torch": 0.0}
+    launches = {"port": 0, "torch": 0}
+    flags = {}  # each leg's TF32 flags as its step reads them
+    t_all = time.perf_counter()
+    for b in prefetch_to_device((b for _, b in step_stream(loader, steps, step_i)), device):
+        splat.splat_heatmap.launches = 0
+        t0 = time.perf_counter()
+        with tf32_mode(True):
+            flags["port"] = tf32_flags()
+            state, metrics = train_step(state, b)
+            lp = float(metrics["loss"])
+        _sync(device)
+        seconds["port"] += time.perf_counter() - t0
+        launches["port"] += splat.splat_heatmap.launches
+        splat.splat_heatmap.launches = 0
+        t0 = time.perf_counter()
+        with tf32_mode(False):
+            flags["torch"] = tf32_flags()
+            labels = {k: torch.as_tensor(v).to(device) for k, v in b["labels"].items()}
+            targets = to_reference_targets(targets_mod.build_targets(
+                labels, feat_hw, num_classes, down_ratio=d, gaussian_gen_type=cfg.DATASET.GAUSSIAN_GEN_TYPE,
+                bbox_area_max=cfg.DATASET.BBOX_AREA_MAX, bbox_area_min=cfg.DATASET.BBOX_AREA_MIN))
+            # NHWC -> an NCHW view, as the JAX tool hands the twin its frames
+            x = torch.as_tensor(b["image"], dtype=torch.float32).to(device).permute(0, 3, 1, 2)
+            topt.zero_grad()
+            tl = reference_loss(twin(x), targets)
+            tl.backward()
+            topt.step()
+            lt = float(tl.detach())
+        _sync(device)
+        seconds["torch"] += time.perf_counter() - t0
+        launches["torch"] += splat.splat_heatmap.launches
+        loss_p.append(lp)
+        loss_t.append(lt)
+        step_i += 1
+        if (step_i - 1) % 20 == 0:
+            progress(f"step {step_i - 1}: port {lp:.4f} torch {lt:.4f} drift {abs(lp - lt) / max(abs(lt), 1e-9):.2e}")
+        if step_i % save_every == 0 and step_i < steps:
+            _save_atomic({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+                          "step": state.step, "updates": state.updates, "twin": twin.state_dict(),
+                          "twin_optimizer": topt.state_dict(), "loss_port": loss_p, "loss_torch": loss_t}, mid)
+    seconds_all = time.perf_counter() - t_all
+    _save_atomic(state.model.state_dict(), final_p)
+    _save_atomic(twin.state_dict(), final_t)
+    with open(losses_path, "w") as f:
+        json.dump({"port": loss_p, "torch": loss_t}, f)
+    ran = step_i - first
+    record = {"steps_run": ran, "first_step": first, "seconds": seconds_all}
+    for leg in ("port", "torch"):
+        record[leg] = {"seconds": seconds[leg], "ms_per_step": 1e3 * seconds[leg] / ran if ran else None,
+                       "splat_launches": launches[leg], "tf32": flags.get(leg)}
+    return state.model, twin, loss_p, loss_t, record
+
+
+def _relative_drift(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-9)
+
+
+def _maybe_bootstrap(out: dict, data: str, res: dict, bootstrap: int, min_overlap, min_height, split: str,
+                     progress) -> None:
+    """``out["bootstrap"]``: ``bootstrap`` resamples of ``split``'s frames
+    (``real_parity.bootstrap_cis``), when ``bootstrap`` is not 0."""
+    if bootstrap:
+        progress(f"bootstrap: {bootstrap} resamples over the {split} images")
+        out["bootstrap"] = bootstrap_cis(data, res, n_resamples=bootstrap, min_overlap=min_overlap,
+                                         min_height=min_height, split=split)
+
+
+def rescore(work_dir: str, input_size: int, num_train: int, num_test: int, seed: int, img_hw, steps: int,
+            min_overlap, min_height, bootstrap: int, progress) -> dict:
+    """The JAX tool's ``rescore_only`` (:260-296): the four ``results_*``
+    directories of an earlier call scored again under ``min_overlap`` and
+    ``min_height`` (the detection gates stay those of the call that wrote
+    them), nothing trained or served. The fixture is written again (the
+    same files for the same seed and sizes): the scorer reads its split
+    and labels."""
+    res = {leg: os.path.join(work_dir, f"results_{leg}") for leg in SIDE_BY_SIDE_LEGS}
+    missing = [d for d in res.values() if not os.path.isdir(d)]
+    if missing:
+        raise FileNotFoundError(f"rescore_only: missing results dirs {missing}; run the full harness first")
+    data = fixture(work_dir, input_size, num_train, num_test, seed, img_hw)
+    out = {"config": {"rescore_of": work_dir, "steps": steps, "min_overlap": min_overlap,
+                      "min_height": min_height},
+           "ap": score_legs(data, res, min_overlap=min_overlap, min_height=min_height)}
+    _maybe_bootstrap(out, data, res, bootstrap, min_overlap, min_height, "test", progress)
+    return out
+
+
+def run_ap_parity(work_dir: str, img_hw=None, input_size: int = 256, num_train: int = 64, num_test: int = 16,
+                  steps: int = 300, batch: int = 8, lr: float = 1e-3, drift_steps: int = 50, seed: int = 20,
+                  progress=print, resume: bool = True, save_every: int = 25, score_thresh: float | None = None,
+                  residual_thresh: float | None = None, min_overlap: float | None = None,
+                  min_height: float | None = None, bootstrap: int = 0, rescore_only: bool = False,
+                  backbone: str = "RESNET-18", device=None) -> dict:
+    """The side-by-side mode (module docstring): the port and the twin
+    trained from the twin's seed-5 init on the same batches, each served
+    through its own pipeline, with the int8 and samew legs, scored by
+    one evaluator. ``score_thresh``/``residual_thresh`` relax the
+    detection gates on every leg alike; ``min_overlap``/``min_height`` the
+    scoring bars."""
+    if rescore_only:
+        return rescore(work_dir, input_size, num_train, num_test, seed, img_hw, steps, min_overlap, min_height,
+                       bootstrap, progress)
+    device = resolve_device(device)
+    data = fixture(work_dir, input_size, num_train, num_test, seed, img_hw)
+    cfg = make_config(data, input_size, batch, lr, backbone)
+    if score_thresh is not None:
+        cfg.DETECTOR.SCORE_THRESH = float(score_thresh)
+    if residual_thresh is not None:
+        cfg.DETECTOR.RESIDUAL_THRESH = float(residual_thresh)
+    twin = build_torch_twin(backbone=backbone)
+    twin_sha = state_dict_sha256(twin.state_dict())
+    ds = create_dataset(data, cfg, is_training=True, split="train")
+    cfg.INPUT_SIZE = tuple(ds.img_size)
+    w, h = cfg.INPUT_SIZE
+    model = load_twin(create_model(cfg), twin.state_dict())
+    progress(f"side-by-side [{backbone}]: both legs from the twin's init ({len(twin.state_dict())} tensors, "
+             f"sha256 {twin_sha[:12]}); input {w}x{h}, {steps} steps, batch {batch}, {device}")
+    model, twin, loss_p, loss_t, trained = train_side_by_side(cfg, ds, model, twin, work_dir, steps, batch, seed,
+                                                              resume, save_every, device, progress)
+    drift = [_relative_drift(a, b) for a, b in zip(loss_p[:drift_steps], loss_t[:drift_steps])]
+
+    test_ds = create_dataset(data, cfg, is_training=False, split="test")
+    test_ds.img_size = list(ds.img_size)
+    samew = load_twin(create_model(cfg), twin.state_dict())
+    res, legs = serve_legs(cfg, model, test_ds, ds, batch, work_dir, device, progress, reference=twin,
+                           samew=samew)
+    out = {
+        "config": {
+            "backbone": backbone, "input": [w, h], "score_thresh": float(cfg.DETECTOR.SCORE_THRESH),
+            "residual_thresh": float(cfg.DETECTOR.RESIDUAL_THRESH), "min_overlap": min_overlap,
+            "min_height": min_height, "mode": "side_by_side", "steps": steps, "batch": batch, "lr": lr,
+            "num_train": num_train, "num_test": num_test, "seed": seed, "drift_steps": drift_steps,
+            "twin_seed": 5, "twin_sha256": twin_sha, "device": str(device), "card": _card(device),
+        },
+        "loss_port_first_last": [loss_p[0], loss_p[-1]],
+        "loss_torch_first_last": [loss_t[0], loss_t[-1]],
+        "loss_drift_curve": drift,
+        f"max_drift_first_{drift_steps}": max(drift) if drift else None,
+        "final_drift": _relative_drift(loss_p[-1], loss_t[-1]),
+        "ap": score_legs(data, res, min_overlap=min_overlap, min_height=min_height),
+        "accepted_counts": {leg: count_accepted(d) for leg, d in res.items()},
+        "legs": legs,
+        "train": trained,
+    }
+    _maybe_bootstrap(out, data, res, bootstrap, min_overlap, min_height, "test", progress)
+    return out
+
+
 def run_production_parity(work_dir: str, input_size: int = 512, num_train: int = 64, num_test: int = 32,
                           steps: int = 4000, batch: int = 8, lr: float = 1e-3, seed: int = 20, resume: bool = True,
                           save_every: int = 250, bootstrap: int = 0, min_overlap: float | None = None,
                           min_height: float | None = None, train_augment: bool = True, eval_split: str = "test",
                           lr_drops: tuple | None = None, backbone: str = "RESNET-18", bf16: bool = False,
-                          device_warp: bool = False, device=None, progress=print) -> dict:
+                          device_warp: bool = False, init: str | None = None, device=None,
+                          progress=print) -> dict:
     """Train the port on the fixture, serve the same weights through the
     three legs and score them at the production gates (module docstring).
     ``eval_split='train'`` serves the frames the overfit checkpoint
     detects: the claim is the serving paths' parity on identical weights
-    and inputs, not generalisation."""
+    and inputs, not generalisation. ``init``: a state dict file to train
+    from in place of the seed-``seed`` draw."""
     device = resolve_device(device)
     data = fixture(work_dir, input_size, num_train, num_test, seed)
     cfg = make_config(data, input_size, batch, lr, backbone)
@@ -315,8 +595,9 @@ def run_production_parity(work_dir: str, input_size: int = 512, num_train: int =
     w, h = cfg.INPUT_SIZE
     progress(f"production-parity [{backbone}{' bf16' if bf16 else ''}]: input {w}x{h}, {steps} steps, batch "
              f"{batch}, {device}")
+    start = torch.load(init, map_location="cpu", weights_only=True) if init else None
     model, losses, trained = train_port(cfg, ds, work_dir, steps, batch, seed, resume, save_every, device,
-                                        progress)
+                                        progress, init=start)
 
     eval_ds, calib_ds = serving_datasets(data, cfg, eval_split, aug, ds.img_size)
     res, legs = serve_legs(cfg, model, eval_ds, calib_ds, batch, work_dir, device, progress)
@@ -329,7 +610,8 @@ def run_production_parity(work_dir: str, input_size: int = 512, num_train: int =
             "min_height": min_height, "mode": "production_same_weights", "steps": steps, "batch": batch, "lr": lr,
             "num_train": num_train, "num_test": num_test, "train_augment": train_augment,
             "eval_split": eval_split, "bf16": bf16, "device_warp": device_warp,
-            "lr_drops": list(lr_drops) if lr_drops else None, "seed": seed, "device": str(device),
+            "lr_drops": list(lr_drops) if lr_drops else None, "seed": seed,
+            "init": {"path": init, "sha256": state_dict_sha256(start)} if init else None, "device": str(device),
             "card": _card(device),
         },
         "loss_first_last": [losses[0], losses[-1]] if losses else None,
@@ -338,52 +620,69 @@ def run_production_parity(work_dir: str, input_size: int = 512, num_train: int =
         "legs": legs,
         "train": trained,
     }
-    if bootstrap:
-        progress(f"bootstrap: {bootstrap} resamples over the {eval_split} images")
-        out["bootstrap"] = bootstrap_cis(data, res, n_resamples=bootstrap, min_overlap=min_overlap,
-                                         min_height=min_height, split=eval_split)
+    _maybe_bootstrap(out, data, res, bootstrap, min_overlap, min_height, eval_split, progress)
     return out
 
 
 def main(argv=None):
     p = argparse.ArgumentParser("ap_parity")
-    p.add_argument("--production", action="store_true", required=True,
+    p.add_argument("--production", action="store_true",
                    help="production-gate same-weights mode: train the port alone until the production gates "
                    "fire, then serve the same weights through the port's pipeline and the reference pipeline and "
-                   "compare their AP at the true gates. The side-by-side mode (both stacks trained from one "
-                   "init) is not ported yet: ROADMAP.md, queue A, item 3")
+                   "compare their AP at the true gates. Without it: the side-by-side mode, the port and the torch "
+                   "twin trained from one init on the same batches, each served through its own pipeline")
     p.add_argument("--work-dir", type=str, default=os.path.join(tempfile.gettempdir(), "ap_parity"))
-    p.add_argument("--steps", type=int, default=4000)
+    p.add_argument("--steps", type=int, default=None, help="300 side by side, 4000 with --production")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--num-train", type=int, default=64)
-    p.add_argument("--num-test", type=int, default=32)
-    p.add_argument("--input-size", type=int, default=512)
+    p.add_argument("--num-test", type=int, default=None, help="16 side by side, 32 with --production")
+    p.add_argument("--input-size", type=int, default=None, help="256 side by side, 512 with --production")
     p.add_argument("--backbone", type=str, default="RESNET-18", choices=BACKBONES)
-    p.add_argument("--bf16", action="store_true", help="train and serve the port leg in bfloat16 compute "
-                   "(fp32 masters); the reference leg serves fp32")
+    p.add_argument("--score-thresh", type=float, default=None,
+                   help="(side by side) relax the score gate on every leg alike")
+    p.add_argument("--residual-thresh", type=float, default=None,
+                   help="(side by side) relax the 3D fit's residual gate on every leg alike")
+    p.add_argument("--rescore-only", action="store_true",
+                   help="(side by side) score the results_* dirs in --work-dir again under --min-overlap and "
+                   "--min-height (and --bootstrap), training and serving nothing; the detection gates are those "
+                   "of the call that wrote the dirs")
+    p.add_argument("--bf16", action="store_true", help="(--production) train and serve the port leg in "
+                   "bfloat16 compute (fp32 masters); the reference leg serves fp32")
     p.add_argument("--device-warp", action="store_true",
-                   help="train in device-warp raw mode with the device dataset cache (TPU.DEVICE_WARP + "
-                   "TPU.DEVICE_DATA_CACHE); the serving legs are unaffected")
+                   help="(--production) train in device-warp raw mode with the device dataset cache "
+                   "(TPU.DEVICE_WARP + TPU.DEVICE_DATA_CACHE); the serving legs are unaffected")
     p.add_argument("--min-overlap", type=float, default=None, help="override the devkit IoU bars")
     p.add_argument("--min-height", type=float, default=None, help="override the devkit min bbox heights")
     p.add_argument("--lr-drops", type=str, default=None,
-                   help="comma-separated updates of 10x learning-rate drops (WarmupMultiStepLR)")
+                   help="(--production) comma-separated updates of 10x learning-rate drops (WarmupMultiStepLR)")
     p.add_argument("--eval-split", type=str, default="test", choices=("test", "train"),
-                   help="the split the serving legs serve ('train': the frames an overfit checkpoint detects)")
-    p.add_argument("--no-train-augment", action="store_true", help="train on the clean test-transform stream")
+                   help="(--production) the split the serving legs serve ('train': the frames an overfit "
+                   "checkpoint detects)")
+    p.add_argument("--no-train-augment", action="store_true",
+                   help="(--production) train on the clean test-transform stream")
+    p.add_argument("--init", type=str, default=None,
+                   help="(--production) a state dict file (.pt) to train from in place of the port's seed draw")
     p.add_argument("--bootstrap", type=int, default=0, metavar="N",
                    help="N-resample percentile bootstrap over the served frames: 95%% CIs of the moderate deltas")
     p.add_argument("--out", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    out = run_production_parity(
-        args.work_dir, input_size=args.input_size, num_train=args.num_train, num_test=args.num_test,
-        steps=args.steps, batch=args.batch, bootstrap=args.bootstrap, min_overlap=args.min_overlap,
-        min_height=args.min_height, train_augment=not args.no_train_augment, eval_split=args.eval_split,
-        lr_drops=tuple(int(s) for s in args.lr_drops.split(",")) if args.lr_drops else None,
-        backbone=args.backbone, bf16=args.bf16, device_warp=args.device_warp,
-        device=None if args.device == "cuda" else args.device,
-    )
+    mode = MODE_DEFAULTS["production" if args.production else "side_by_side"]
+    for key, value in mode.items():
+        if getattr(args, key) is None:
+            setattr(args, key, value)
+    device = None if args.device == "cuda" else args.device
+    common = dict(input_size=args.input_size, num_train=args.num_train, num_test=args.num_test, steps=args.steps,
+                  batch=args.batch, bootstrap=args.bootstrap,
+                  min_overlap=args.min_overlap, min_height=args.min_height, backbone=args.backbone)
+    if args.production:
+        out = run_production_parity(
+            args.work_dir, train_augment=not args.no_train_augment, eval_split=args.eval_split,
+            lr_drops=tuple(int(s) for s in args.lr_drops.split(",")) if args.lr_drops else None,
+            bf16=args.bf16, device_warp=args.device_warp, init=args.init, device=device, **common)
+    else:
+        out = run_ap_parity(args.work_dir, score_thresh=args.score_thresh, residual_thresh=args.residual_thresh,
+                            rescore_only=args.rescore_only, device=device, **common)
     print(json.dumps(out, indent=2))
     if args.out:
         with open(args.out, "w") as f:

@@ -164,9 +164,9 @@ def _split_names(data: str, split: str) -> list:
 def score_legs(data: str, res: dict, min_overlap=None, min_height=None, split: str = "test",
                recall_points: int = 40) -> dict:
     """``_score_both`` of ``tools/ap_parity.py``: every (class, metric,
-    difficulty) cell of each leg in ``res`` ({"port", "torch"[, "int8"]}:
-    result dirs) in AP points, ``delta`` = port - torch and ``delta_int8``
-    = int8 - port."""
+    difficulty) cell of each leg in ``res`` ({"port", "torch"[, "int8"][,
+    "samew"]}: result dirs) in AP points, ``delta`` = port - torch,
+    ``delta_int8`` = int8 - port and ``delta_samew`` = samew - torch."""
     names = _split_names(data, split)
     gt_dir = os.path.join(data, "training", "label_2")
     out = {}
@@ -181,6 +181,9 @@ def score_legs(data: str, res: dict, min_overlap=None, min_height=None, split: s
                 if "int8" in ap:
                     cell["int8"] = round(100 * ap["int8"], 2)
                     cell["delta_int8"] = round(100 * (ap["int8"] - ap["port"]), 2)
+                if "samew" in ap:
+                    cell["samew"] = round(100 * ap["samew"], 2)
+                    cell["delta_samew"] = round(100 * (ap["samew"] - ap["torch"]), 2)
                 out[f"{cls}_{metric}_{diff}"] = cell
     return out
 
@@ -193,8 +196,9 @@ def bootstrap_cis(data: str, res: dict, n_resamples: int = 500, min_overlap=None
                   split: str = "test") -> dict:
     """``bootstrap_cis`` of ``tools/ap_parity.py``: percentile-bootstrap 95%
     intervals over the split's frames of the port-minus-reference delta
-    (``delta_ci95``) and, with an int8 leg, int8 minus port
-    (``delta_int8_ci95``), moderate difficulty, per class and metric;
+    (``delta_ci95``), with an int8 leg int8 minus port
+    (``delta_int8_ci95``) and with a samew leg samew minus reference
+    (``delta_samew_ci95``), moderate difficulty, per class and metric;
     every leg re-scored on the same draws, so an interval is the split's
     own metric noise, the yardstick a point delta is judged by."""
     names = _split_names(data, split)
@@ -217,7 +221,7 @@ def bootstrap_cis(data: str, res: dict, n_resamples: int = 500, min_overlap=None
     out = {"n_resamples": n_resamples, "n_images": len(names)}
     for cls in CLASSES:
         for metric in METRICS:
-            d_pt, d_qp = [], []
+            d_pt, d_qp, d_sw = [], [], []
             for draw in draws:
                 g = [gts[i] for i in draw]
                 ap = {k: evaluate_ap(g, [det[i] for i in draw], class_name=cls, metric=metric,
@@ -226,9 +230,13 @@ def bootstrap_cis(data: str, res: dict, n_resamples: int = 500, min_overlap=None
                 d_pt.append(100.0 * (ap["port"] - ap["torch"]))
                 if "int8" in ap:
                     d_qp.append(100.0 * (ap["int8"] - ap["port"]))
+                if "samew" in ap:
+                    d_sw.append(100.0 * (ap["samew"] - ap["torch"]))
             cell = {"delta_ci95": _ci95(d_pt)}
             if d_qp:
                 cell["delta_int8_ci95"] = _ci95(d_qp)
+            if d_sw:
+                cell["delta_samew_ci95"] = _ci95(d_sw)
             out[f"{cls}_{metric}_moderate"] = cell
     return out
 

@@ -1,6 +1,6 @@
-"""Card tests of the eleventh slice: the production same-weights campaign
-(``rtm3d_tpu_torch/tools/ap_parity.py``) and the four tools that read its
-work dir, through the kernels.
+"""Card tests of the production same-weights campaign and the side-by-side
+mode (``rtm3d_tpu_torch/tools/ap_parity.py``) and of the four tools that
+read a campaign's work dir, through the kernels.
 
 Like tests/test_torch_cuda.py this file imports neither JAX nor the JAX
 package; on a machine with a CUDA device, from the repository root:
@@ -19,6 +19,12 @@ Without a device every ``cuda``-marked test skips with its reason.
   (``chip_smoke.py``'s ap_parity_tools gates); solver_tune's deployed row
   equal to diag's LM costs within 1e-5; the ladder's fp32 rung writing the
   port leg's lines; each int8 variant's launches.
+- A small side-by-side run (input 128, 8 train and 4 test frames, 6 steps
+  at b4, ResNet-18): one splat launch a step in the port's step and one
+  in the reference leg's target build; the port leg trained under TF32,
+  the reference leg with TF32 off, as the flags read inside each leg; 2
+  LM launches a port, int8 and samew batch; one ``quantize`` and one
+  ``conv_s8`` launch an int8 conv an int8 batch.
 """
 
 import os
@@ -99,3 +105,20 @@ def test_tools_on_a_detecting_work_dir(cuda, tmp_path):
     for name, r in rows.items():
         n = r["int8_convs"] * r["batches"]
         assert n > 0 and r["launches"] == {"conv_s8": n, "quantize": n, "lm": 2 * r["batches"]}, name
+
+
+@pytest.mark.cuda
+def test_side_by_side_launches_its_kernels(cuda, tmp_path):
+    out = ap_parity.run_ap_parity(str(tmp_path), input_size=SIZE, num_train=8, num_test=4, steps=6, batch=BATCH,
+                                  save_every=3, progress=lambda *a: None)
+    train, legs = out["train"], out["legs"]
+    assert train["steps_run"] == 6 and train["port"]["splat_launches"] == train["torch"]["splat_launches"] == 6
+    assert train["port"]["tf32"] == {"cudnn": True, "matmul": True}
+    assert train["torch"]["tf32"] == {"cudnn": False, "matmul": False}
+    assert out["loss_drift_curve"][0] < 5e-3 and out["config"]["card"]["name"] == torch.cuda.get_device_name(cuda)
+    for leg in ("port", "int8", "samew"):
+        assert legs[leg]["batches"] == 1 and legs[leg]["lm_launches"] == 2, leg
+    n = legs["int8"]["int8_convs"] * legs["int8"]["batches"]
+    assert n > 0 and legs["int8"]["conv_s8_launches"] == legs["int8"]["quantize_launches"] == n
+    assert set(out["ap"]["Car_bbox_moderate"]) == {"port", "torch", "delta", "int8", "delta_int8", "samew",
+                                                   "delta_samew"}
