@@ -207,6 +207,18 @@ phases of one JSON line each; any failure exits non-zero:
            a rank a step, the splat against its plain version; per-rank ms a
            step, the gradient and a BN-sized all-reduce timed alone, peak
            memory a process (not a scaling figure);
+  spatial  the spatial mesh axis (rtm3d_tpu_torch/parallel/spatial.py): two
+           gloo ranks sharing the card as a 1 x 2 data x spatial grid of the
+           TPU config's DLA-34, each on its band of every frame's rows,
+           against one rank in this process: (i) fp32 (TF32 off) b2
+           1280x384, 3 steps (DDP_GATE; the parameters within 2 x the
+           summed learning rates; the ranks' hashes equal) and a zero-halo
+           witness that must leave the gates; (iii) one fp32 step at
+           1280x416, bands 224 + 192; (ii) b32 bf16, 2 warm-up and 5 timed
+           steps: ms a rank step, the halo exchanges' collectives and MB a
+           step, peak memory a process beside one rank's; one splat launch
+           a rank a step, the splat against its plain version; whether gloo
+           takes CUDA tensors in all_gather (not a scaling figure);
   ddp_cli  python -m torch.distributed.run --nproc-per-node 1 (NCCL, world
            size 1): cli.train --multihost on the data phase's tree (the TPU
            config, 1 epoch; the data phase's gates, its step spans beside the
@@ -2645,6 +2657,255 @@ def ddp_full_phase(smi: str) -> dict:
             "splat_max_abs_err": max(r["splat_max_abs_err"] for r in ranks)}
 
 
+# -- the spatial mesh axis (parallel/spatial.py): two gloo ranks sharing the card as a 1 x 2 grid --
+SPATIAL_CONFIG = "rtm3d_dla34_kitti_tpu.yaml"
+SPATIAL_HW, SPATIAL_UNEVEN_HW = (W, H), (W, 416)  # bands 192 + 192; 224 + 192
+SPATIAL_FP32_BATCH, SPATIAL_FP32_STEPS = 2, 3
+SPATIAL_WARMUP, SPATIAL_TIMED = 2, 5  # the bf16 steps at global batch TRAIN_BATCH
+# (i) and (iii): the grid against one rank on the card, fp32 with TF32 off,
+# at ddp_fp32's gates (DDP_GATE on the losses and step 1's gradient; after
+# (i)'s three steps the parameters within 2 x the summed learning rates);
+# the zero-halo witness (zero rows at the band edges in place of the
+# neighbours') must leave them
+
+
+def spatial_config(hw, batch: int, dtype: str):
+    from rtm3d_tpu_torch import load_config
+
+    cfg = load_config(os.path.join(CONFIGS, SPATIAL_CONFIG))
+    cfg.INPUT_SIZE = tuple(hw)
+    cfg.BATCH_SIZE, cfg.DATASET.MAX_OBJS = batch, TRAIN_OBJS
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    cfg.SOLVER.BASE_LR, cfg.SOLVER.WARMUP_ITERS = DDP_FP32_LR, 0
+    return cfg
+
+
+def spatial_batches(hw, batch: int, steps: int, seed: int) -> list:
+    """Seeded global batches of uint8 frames of ``hw`` (drawn on the card)
+    and KITTI-like labels (synthetic_labels at 1280 wide), on the card."""
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w, h = hw
+    return [{"image": torch.randint(0, 256, (batch, h, w, 3), dtype=torch.uint8, device="cuda", generator=gen),
+             "labels": {k: v.cuda() for k, v in synthetic_labels(rng, batch, TRAIN_OBJS).items()}}
+            for _ in range(steps)]
+
+
+@functools.lru_cache(maxsize=1)
+def spatial_template():
+    """create_model's seed-0 DLA-34 of the spatial phase, on the CPU, built
+    once a process (each run starts from a copy)."""
+    from rtm3d_tpu_torch.nn.model import create_model
+
+    return create_model(spatial_config(SPATIAL_HW, 1, "float32"), torch.Generator().manual_seed(0))
+
+
+def spatial_steps(hw, batch: int, steps: int, dtype: str, seed: int, timed: int = 0, hashes: bool = False) -> dict:
+    """``steps`` train steps of DLA-34 from create_model's seed-0 weights on
+    the seeded batches, on this process's grid (or none): each step's loss
+    items, CUDA-event span and (``hashes``) parameter hash, step 1's
+    gradients, the parameters after the last; over the last ``timed``
+    steps the peak memory and the halo exchanges' collectives and bytes."""
+    import copy
+    import hashlib
+
+    from rtm3d_tpu_torch.parallel import spatial
+    from rtm3d_tpu_torch.train.state import TrainState
+    from rtm3d_tpu_torch.train.step import make_train_step
+
+    cfg = spatial_config(hw, batch, dtype)
+    state = TrainState.create(copy.deepcopy(spatial_template()), cfg, device="cuda")
+    step = make_train_step(cfg, device="cuda")
+    out = {"loss_items": [], "digests": [], "lrs": [], "step_ms": []}
+    for i, b in enumerate(spatial_batches(hw, batch, steps, seed)):
+        if i == steps - timed:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            spatial.halo_exchange.collectives = spatial.halo_exchange.bytes = 0
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        out["lrs"].append(state.schedule(state.updates))
+        ev[0].record()
+        state, m = step(state, b)
+        ev[1].record()
+        out["loss_items"].append(m["loss_items"].cpu())
+        out["step_ms"].append(ev)
+        if i == 0:
+            out["grads"] = {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()}
+        if hashes:
+            h = hashlib.sha256()
+            for p in state.model.parameters():
+                h.update(p.detach().cpu().numpy().tobytes())
+            out["digests"].append(h.hexdigest())
+    torch.cuda.synchronize()
+    out["step_ms"] = [a.elapsed_time(z) for a, z in out["step_ms"]][steps - timed:] if timed else []
+    if timed:
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["halo_collectives_per_step"] = spatial.halo_exchange.collectives / timed
+        out["halo_mb_per_step"] = spatial.halo_exchange.bytes / timed / 1e6
+    out["params"] = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
+    return out
+
+
+def all_gather_probe() -> dict:
+    """Whether gloo takes CUDA tensors in all_gather between the two ranks
+    (all_reduce is the transport; all_gather is not used). Run last: gloo's
+    send on a CUDA tensor hands the device pointer to the socket, and the
+    next collective on that pair fails with "writev ... Bad address" (seen
+    on an H100), so send/recv is not probed."""
+    import torch.distributed as tdist
+
+    try:
+        t = torch.full((4,), float(tdist.get_rank() + 1), device="cuda")
+        got = [torch.zeros_like(t) for _ in range(2)]
+        tdist.all_gather(got, t)
+        torch.cuda.synchronize()
+        return {"gloo_cuda_all_gather": bool(torch.equal(torch.stack(got).cpu(), torch.tensor([[1.0] * 4, [2.0] * 4])))}
+    except RuntimeError as e:
+        return {"gloo_cuda_all_gather": f"refused: {str(e)[:160]}"}
+
+
+def spatial_worker(workdir: str, rank: int) -> None:
+    """One rank of the spatial phase, a 1 x 2 grid: (i) the fp32 steps and
+    the zero-halo witness, (iii) the uneven bands' step, (ii) the timed
+    bf16 steps; the splat launches of all of them; the all_gather probe."""
+    from rtm3d_tpu_torch.data.targets import heatmap_inputs
+    from rtm3d_tpu_torch.ops import splat
+    from rtm3d_tpu_torch.parallel import spatial
+
+    dist, _ = ddp_rank_init(workdir, rank)
+    try:
+        dist.init_mesh(1, DDP_WORLD)
+        rec = {"rank": rank, "seconds": {}}
+        t0 = time.perf_counter()
+        splat.splat_heatmap.launches = 0
+        rec["fp32"] = spatial_steps(SPATIAL_HW, SPATIAL_FP32_BATCH, SPATIAL_FP32_STEPS, "float32", 7, hashes=True)
+        saved = spatial.Grid.exchange
+        spatial.Grid.exchange = lambda self, up, down: (None, None)
+        try:
+            rec["witness"] = spatial_steps(SPATIAL_HW, SPATIAL_FP32_BATCH, 1, "float32", 7)
+        finally:
+            spatial.Grid.exchange = saved
+        rec["uneven"] = spatial_steps(SPATIAL_UNEVEN_HW, SPATIAL_FP32_BATCH, 1, "float32", 8)
+        rec["seconds"]["fp32_witness_uneven"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bf16 = spatial_steps(SPATIAL_HW, TRAIN_BATCH, SPATIAL_WARMUP + SPATIAL_TIMED, "bfloat16", 9,
+                             timed=SPATIAL_TIMED)
+        rec["seconds"]["bf16"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        rec["splat_launches"] = splat.splat_heatmap.launches
+        rec["bf16"] = {k: v for k, v in bf16.items() if k not in ("grads", "params")}
+        labels = spatial_batches(SPATIAL_HW, TRAIN_BATCH, 1, 9)[0]["labels"]
+        feat_hw = (H // 4, W // 4)
+        inputs = heatmap_inputs(labels)
+        got = splat.splat_heatmap(*inputs, feat_hw, 3)
+        ref = splat.splat_heatmap_reference(*inputs, feat_hw, 3)
+        rec["splat_max_abs_err"] = (got - ref).abs().max().item()
+        rec["splat_ones_equal"] = bool(torch.equal(got == 1.0, ref == 1.0))
+        if rank:
+            for k in ("fp32", "witness", "uneven"):
+                rec[k] = {"loss_items": rec[k]["loss_items"], "digests": rec[k]["digests"]}
+        rec["probe"] = all_gather_probe()
+        torch.save(rec, os.path.join(workdir, f"spatial_rank{rank}.pt"))
+    finally:
+        dist.shutdown()
+
+
+def spatial_phase(smi: str) -> dict:
+    """The ``spatial`` mesh axis on the card: two gloo ranks sharing it as a
+    1 x 2 grid of DLA-34 (the TPU config) at 1280x384 (bands 192 + 192),
+    against one rank in this process on the same batches: (i) fp32 with
+    TF32 off, 3 steps (DDP_GATE on the losses and step 1's gradient, the
+    parameters within 2 x the summed learning rates, the ranks' hashes
+    equal; the zero-halo witness must leave the gates); (ii) TRAIN_BATCH
+    bf16, SPATIAL_TIMED timed steps: ms a rank step, the halo exchanges'
+    collectives and MB a step, each process's peak memory beside one
+    rank's; (iii) one fp32 step at 1280x416, bands 224 + 192. Two ranks on
+    one card over gloo: not a scaling figure."""
+    from rtm3d_tpu_torch.parallel.spatial import band_rows
+
+    workdir = os.path.abspath(os.path.join("chip_smoke_out", "ddp", "spatial"))
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    ddp_launch([sys.executable, os.path.abspath(__file__), "--ddp-worker", "spatial", workdir, "{rank}"],
+               DDP_WORLD, "spatial")
+    ranks_s = time.perf_counter() - t0
+    r0, r1 = (torch.load(os.path.join(workdir, f"spatial_rank{r}.pt"), weights_only=False) for r in range(DDP_WORLD))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one = spatial_steps(SPATIAL_HW, SPATIAL_FP32_BATCH, SPATIAL_FP32_STEPS, "float32", 7)
+    one_uneven = spatial_steps(SPATIAL_UNEVEN_HW, SPATIAL_FP32_BATCH, 1, "float32", 8)
+    torch.cuda.empty_cache()
+    one_bf16 = spatial_steps(SPATIAL_HW, TRAIN_BATCH, SPATIAL_WARMUP + SPATIAL_TIMED, "bfloat16", 9,
+                             timed=SPATIAL_TIMED)
+    one_s = time.perf_counter() - t0
+
+    def gates(got, want, params=True):
+        g = {k: v.double() for k, v in want["grads"].items()}
+        per = {k: ((got["grads"][k].double() - v).norm() / v.norm()).item() for k, v in g.items() if v.norm() > 0}
+        flat = lambda d: torch.cat([v.double().flatten() for v in d.values()])
+        out = {"loss_rel": max(((a - b).abs() / b.abs().clamp(min=1e-12)).max().item()
+                               for a, b in zip(got["loss_items"], want["loss_items"])),
+               "grad_l2_rel_total": ((flat(got["grads"]) - flat(g)).norm() / flat(g).norm()).item(),
+               "grad_l2_rel_worst": max(per.values())}
+        if params:
+            out["param_max_abs_diff"] = max((got["params"][k] - v).abs().max().item()
+                                            for k, v in want["params"].items())
+            out["param_bound"] = 2.01 * sum(want["lrs"])
+        return out
+
+    def within(g):
+        return (g["loss_rel"] <= DDP_GATE["loss_rel"] and g["grad_l2_rel_total"] <= DDP_GATE["grad_l2_total"]
+                and g["grad_l2_rel_worst"] <= DDP_GATE["grad_l2_tensor"]
+                and g.get("param_max_abs_diff", 0.0) <= g.get("param_bound", 0.0))
+
+    fp32 = gates(r0["fp32"], one)
+    fp32["loss_rel_rank1"] = gates({**r0["fp32"], "loss_items": r1["fp32"]["loss_items"]}, one)["loss_rel"]
+    witness = gates(r0["witness"], one, params=False)  # step 1 against step 1
+    uneven = gates(r0["uneven"], one_uneven, params=False)  # one step at lr 1e-6: the loss and the gradient
+    bf16 = [r["bf16"] for r in (r0, r1)]
+    rec = {"label": "two ranks sharing one card as a 1 x 2 data x spatial grid, gloo: not a scaling figure",
+           "card": smi, "config": SPATIAL_CONFIG, "transport": "all_reduce (sum) of an (S, n) buffer over gloo",
+           "probe": r0["probe"], "ranks_wall_s": ranks_s, "rank0_seconds": r0["seconds"], "one_rank_wall_s": one_s,
+           "fp32": {"input": "x".join(map(str, SPATIAL_HW)), "bands": band_rows(SPATIAL_HW[1], 2, 32),
+                    "global_batch": SPATIAL_FP32_BATCH, "steps": SPATIAL_FP32_STEPS, "dtype": "float32, TF32 off",
+                    "lr": DDP_FP32_LR, **fp32, "ranks_hash_equal": r0["fp32"]["digests"] == r1["fp32"]["digests"],
+                    "gate": DDP_GATE},
+           "witness_zero_halo": witness,
+           "uneven": {"input": "x".join(map(str, SPATIAL_UNEVEN_HW)), "bands": band_rows(SPATIAL_UNEVEN_HW[1], 2, 32),
+                      **uneven},
+           "bf16": {"input": "x".join(map(str, SPATIAL_HW)), "global_batch": TRAIN_BATCH, "timed_steps": SPATIAL_TIMED,
+                    "per_rank": [{k: b[k] for k in ("step_ms", "peak_mem_gb", "halo_collectives_per_step",
+                                                     "halo_mb_per_step")} for b in bf16],
+                    "ms_per_rank_step": float(np.mean([np.mean(b["step_ms"]) for b in bf16])),
+                    "one_rank_ms_per_step": float(np.mean(one_bf16["step_ms"])),
+                    "one_rank_peak_mem_gb": one_bf16["peak_mem_gb"],
+                    "losses_equal_across_ranks": all(torch.equal(a, b) for a, b in zip(*(b["loss_items"] for b in bf16))),
+                    "loss_first": bf16[0]["loss_items"][0][-1].item(), "loss_last": bf16[0]["loss_items"][-1][-1].item(),
+                    "one_rank_loss_last": one_bf16["loss_items"][-1][-1].item()},
+           "splat_launches": [r0["splat_launches"], r1["splat_launches"]],
+           "splat_max_abs_err": max(r0["splat_max_abs_err"], r1["splat_max_abs_err"])}
+    emit("spatial", **rec)
+    if not (within(fp32) and fp32["loss_rel_rank1"] <= DDP_GATE["loss_rel"] and rec["fp32"]["ranks_hash_equal"]):
+        raise AssertionError(f"spatial: the fp32 grid disagrees with one rank, or its ranks with each other: {rec}")
+    if not within(uneven):
+        raise AssertionError(f"spatial: the uneven bands' step disagrees with one rank: {rec}")
+    if not (witness["loss_rel"] > DDP_GATE["loss_rel"] and witness["grad_l2_rel_total"] > DDP_GATE["grad_l2_total"]):
+        raise AssertionError(f"spatial: the zero-halo witness stays within the gates: {rec}")
+    losses = [torch.stack(b["loss_items"]) for b in bf16]
+    if not (all(torch.isfinite(l).all() for l in losses) and rec["bf16"]["losses_equal_across_ranks"]
+            and all(b["halo_collectives_per_step"] > 0 for b in bf16)):
+        raise AssertionError(f"spatial: a bf16 loss is not finite, the ranks' losses differ, or no halo moved: {rec}")
+    want = SPATIAL_FP32_STEPS + 2 + SPATIAL_WARMUP + SPATIAL_TIMED  # fp32, witness, uneven, bf16
+    if rec["splat_launches"] != [want] * DDP_WORLD:
+        raise AssertionError(f"spatial: expected one splat launch a rank a step ({want}): {rec}")
+    if rec["splat_max_abs_err"] > 1e-6 or not (r0["splat_ones_equal"] and r1["splat_ones_equal"]):
+        raise AssertionError(f"spatial: the splat kernel disagrees with its plain version: {rec}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"splat_launches": sum(rec["splat_launches"]), "record": rec,
+            "splat_max_abs_err": rec["splat_max_abs_err"]}
+
+
 def ddp_cli_worker(workdir: str) -> None:
     """The torchrun rank of ddp_cli: ``cli.train.main`` then
     ``cli.detect.main`` on the argument lists of ``workdir/argv.json``
@@ -3040,6 +3301,8 @@ def ddp_worker(argv: list) -> int:
         ddp_fp32_worker(where, int(rank))
     elif kind == "full":
         ddp_full_worker(where, int(rank))
+    elif kind == "spatial":
+        spatial_worker(where, int(rank))
     else:
         ddp_cli_worker(where)
     return 0
@@ -3183,6 +3446,8 @@ def main() -> int:
     phase_done("ddp_fp32")
     ddp_full = ddp_full_phase(smi)
     phase_done("ddp_full")
+    spatial_rec = spatial_phase(smi)
+    phase_done("spatial")
     ddp_cli = ddp_cli_phase(tree, from_files["train_cli_device"], from_files_detect["records"]["detect_cli_device"],
                             from_files_detect["device_weights"])
     os.remove(from_files_detect["device_weights"])
@@ -3253,7 +3518,8 @@ def main() -> int:
                      + resnet["launches"]["resnet18_train"] + resnet["launches"]["stats"]
                      + train_benched["splat_launches"] + ap_prod["launches"]["splat"]
                      + ap_sbs["launches"]["splat"]
-                     + ddp_fp32["splat_launches"] + ddp_full["splat_launches"] + ddp_cli["splat_launches"]),
+                     + ddp_fp32["splat_launches"] + ddp_full["splat_launches"] + ddp_cli["splat_launches"]
+                     + spatial_rec["splat_launches"]),
         "launches_by_path": {"train": trained["splat_launches"], "remat": remat["splat_launches"],
                              "bench_train": train_benched["splat_launches"],
                              "ap_parity_production": ap_prod["launches"]["splat"],
@@ -3262,12 +3528,14 @@ def main() -> int:
                              **{k: r["splat_launches"] for k, r in host_variants.items()},
                              "resnet18_train": resnet["launches"]["resnet18_train"],
                              "stats": resnet["launches"]["stats"], "ddp_fp32": ddp_fp32["splat_launches"],
-                             "ddp_full": ddp_full["splat_launches"], "ddp_cli_train": ddp_cli["splat_launches"]},
+                             "ddp_full": ddp_full["splat_launches"], "ddp_cli_train": ddp_cli["splat_launches"],
+                             "spatial": spatial_rec["splat_launches"]},
         # at the train phase's shape, on the edge batch and at both data
         # modes' and the ResNet-18 run's shapes and labels, and on each
         # ddp_full rank's first batch
         "max_abs_err": max([r["max_abs_err"] for r in (splat_main, splat_edge, *data_splats.values())]
-                           + [resnet["splat_max_abs_err"], ddp_full["splat_max_abs_err"]]),
+                           + [resnet["splat_max_abs_err"], ddp_full["splat_max_abs_err"],
+                              spatial_rec["splat_max_abs_err"]]),
         "ms": splat_main["kernel_ms"],
         # "profiler" (the kernel alone) or "graph" (kernel_device_ms)
         "timed_by": splat_main["timed_by"],

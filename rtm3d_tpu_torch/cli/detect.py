@@ -29,15 +29,18 @@ Under torchrun it serves data-parallel, one process per device
 
     python -m torch.distributed.run --nproc-per-node N -m rtm3d_tpu_torch.cli.detect ... [--device cpu]
 
-Each rank serves the strided shard of the frame list on
-``cuda:LOCAL_RANK`` (or the CPU) at ``--batch-size / world size`` frames
+Each data group of ranks serves the strided shard of the frame list on
+``cuda:LOCAL_RANK`` (or the CPU) at ``--batch-size / data size`` frames
 a batch (which must divide; an export's batch is per rank) and writes
 the result files of its real rows; the master prints the summary after
-a barrier. With ``--int8`` the master calibrates, over the batches one
-process would, and sends the scales to every rank, so that every rank
-serves the same int8 network. A config whose ``TPU.MESH_AXES``/
-``MESH_SHAPE`` asks for any other mesh than data parallelism is refused
-(``parallel/dist.py::check_mesh_config``).
+a barrier. ``TPU.MESH_AXES``/``MESH_SHAPE`` lay the ranks out as the
+train CLI does (``parallel/dist.py::check_mesh_config``); serving shards
+the frames on the data axis only and runs each frame whole on every rank
+of its data group, as the JAX CLI replicates them across ``spatial``
+(``rtm3d_tpu/cli/detect.py:197-236``, ``parallel/mesh.py:147-158``), and
+only the group's spatial index 0 writes. With ``--int8`` the master
+calibrates, over the batches one process would, and sends the scales to
+every rank, so that every rank serves the same int8 network.
 
 ``--int8`` serves the post-training quantized network (``nn/quant.py``,
 ``rtm3d_tpu/cli/detect.py:44-81,170-195,288-410``): activation scales from
@@ -143,14 +146,15 @@ def _detect(args, device) -> dict:
     cfg = load_config(args.model_config, args.set)
     if args.data_path:
         cfg.DATASET.PATH = args.data_path
-    dist.check_mesh_config(cfg)
     # the device dataset cache is a training optimisation (cli/train.py
     # builds it); serving makes one pass over the frames
     cfg.TPU.DEVICE_DATA_CACHE = False
 
     ds = create_dataset(cfg.DATASET.PATH, cfg, is_training=False, split=args.split)
     cfg.INPUT_SIZE = tuple(ds.img_size)
-    ranks = dist.world_size()
+    dist.init_mesh(*dist.check_mesh_config(cfg))
+    ranks = dist.data_size()
+    writes = dist.spatial_index() == 0  # the other ranks of a data group serve the same frames
     asked = dist.local_batch_size(args.batch_size)
     batch_size = min(asked, -(-len(ds) // ranks))
     say = print if dist.is_master() else (lambda *a, **k: None)
@@ -174,7 +178,7 @@ def _detect(args, device) -> dict:
         else:
             detect = make_detect_step(model, cfg, with_3d=True, device=device)
     loader = DataLoader(
-        ds, batch_size, shuffle=False, drop_last=False, num_shards=ranks, shard_index=dist.rank(),
+        ds, batch_size, shuffle=False, drop_last=False, num_shards=ranks, shard_index=dist.data_index(),
         pad_final=True,  # one batch shape; the padded tail is skipped below
         num_workers=int(cfg.get("num_workers", 0)),
     )
@@ -202,7 +206,7 @@ def _detect(args, device) -> dict:
         det = {k: v.cpu().numpy() for k, v in det.items()}
         batch_s.append(time.perf_counter() - t0)
         num_valid = int(batch["num_valid"])  # the padded tail is not written
-        for bi in range(num_valid):
+        for bi in range(num_valid if writes else 0):
             name = os.path.splitext(os.path.basename(batch["path"][bi]))[0]
             # single-row views, with the boxes in the original frame
             det_i = {k: v[bi : bi + 1] for k, v in det.items()}
@@ -216,13 +220,14 @@ def _detect(args, device) -> dict:
     wall = time.perf_counter() - t_wall
     device_s = sum(batch_s)
     total = n_img
-    if ranks > 1:
+    if dist.world_size() > 1:
         dist.sync_processes("detect_done")
-        total = int(dist.all_reduce_sum(torch.tensor([n_img], device=device)).item())
+        total = int(dist.all_reduce_sum(torch.tensor([n_img], device=device), group=dist.data_group()).item())
     say(
         f"detect: {total} images, device {device_s:.2f}s ({n_img / max(device_s, 1e-9):.1f} img/s), "
         f"end-to-end {wall:.2f}s ({n_img / max(wall, 1e-9):.1f} img/s incl. load+write), "
-        + (f"{ranks} ranks (times and rates of rank 0), " if ranks > 1 else "")
+        + (f"{dist.world_size()} ranks (times and rates of rank 0), " if dist.world_size() > 1 else "")
+        + (f"a {ranks} x {dist.spatial_size()} data x spatial grid, " if dist.spatial_size() > 1 else "")
         + f"results -> {args.out_dir}"
     )
     return {"images": total, "img_size": list(ds.img_size), "device_s": device_s, "wall_s": wall,

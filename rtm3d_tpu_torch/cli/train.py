@@ -18,16 +18,18 @@ torchrun (``parallel/dist.py``; the JAX CLI's flag, :54-58, 114-115)::
         --model-config ... [--device cpu]
 
 Each rank runs on ``cuda:LOCAL_RANK`` (NCCL) or, with ``--device cpu``,
-on the CPU (gloo); ``BATCH_SIZE`` is the global batch, and each rank
-loads its strided shard of every epoch at ``BATCH_SIZE / world size``
-(which must divide). The warm-up collective runs before the first step.
-The losses, and so the best-model decision, are the global batch's on
-every rank. The master alone prints, writes TensorBoard and saves
+on the CPU (gloo); ``BATCH_SIZE`` is the global batch. ``TPU.MESH_AXES``/
+``MESH_SHAPE`` lay the ranks out as a data x spatial grid, as the JAX CLI
+builds its mesh (:126; ``parallel/dist.py::check_mesh_config``, which
+refuses with a message a mesh the port cannot run): each data group
+loads its strided shard of every epoch at ``BATCH_SIZE / data size``
+(which must divide), and with a ``spatial`` axis the ranks of a data
+group load the same frames and each trains on its band of their rows
+(``parallel/spatial.py``). The warm-up collective runs before the first
+step. The losses, and so the best-model decision, are the global batch's
+on every rank. The master alone prints, writes TensorBoard and saves
 ``.pt`` files; under ``TRAINING.USE_ORBAX`` every rank writes the
 collective directory saves (``train/checkpoint.py``).
-A config whose ``TPU.MESH_AXES``/``MESH_SHAPE`` asks for any other mesh,
-the JAX package's ``spatial`` axis for one, is refused with a message
-(``parallel/dist.py::check_mesh_config``).
 
 ``TRAINING.CHECKPOINT_MODE`` is ``start``, ``resume`` (from the
 ``last_checkpoint`` pointer under ``TRAINING.WEIGHTS/<BACKBONE>``, when
@@ -172,7 +174,6 @@ def main(argv=None, *, on_start=None):
 
 def _train(args, device, on_start):
     cfg = setup(args)
-    dist.check_mesh_config(cfg)
     master = dist.is_master()
     say = print if master else (lambda *a, **k: None)
 
@@ -182,10 +183,12 @@ def _train(args, device, on_start):
     # the train split's, so both steps see one shape
     cfg.INPUT_SIZE = tuple(train_ds.img_size)
     test_ds.img_size = list(train_ds.img_size)
+    grid = dist.check_mesh_config(cfg)  # the bands need the rect size
+    dist.init_mesh(*grid)
 
     workers = int(cfg.get("num_workers", 0))
     batch = dist.local_batch_size(int(cfg.BATCH_SIZE))
-    shards = {"num_shards": dist.world_size(), "shard_index": dist.rank()}
+    shards = {"num_shards": dist.data_size(), "shard_index": dist.data_index()}
     train_loader = DataLoader(train_ds, batch, shuffle=True, seed=args.seed, num_workers=workers, **shards)
     # a full batch even when the split is shorter: pad_final wraps the tail
     test_loader = DataLoader(test_ds, batch, shuffle=False, drop_last=False, pad_final=True, num_workers=workers,
@@ -196,7 +199,8 @@ def _train(args, device, on_start):
     w, h = cfg.INPUT_SIZE
     n_params = sum(p.numel() for p in state.model.parameters())
     say(f"model: {cfg.MODEL.BACKBONE}, params: {n_params / 1e6:.2f}M, input {w}x{h}, device {device}"
-        + (f", {dist.world_size()} ranks, {batch} rows each" if dist.world_size() > 1 else ""))
+        + (f", {dist.world_size()} ranks, {batch} rows each" if dist.world_size() > 1 else "")
+        + (f", a {grid[0]} x {grid[1]} data x spatial grid" if grid[1] > 1 else ""))
 
     checkpointer = CheckPointer(os.path.join(cfg.TRAINING.WEIGHTS, cfg.MODEL.BACKBONE),
                                 use_orbax=bool(cfg.TRAINING.get("USE_ORBAX", False)))

@@ -13,6 +13,14 @@ L1 on the sigmoid sub-pixel center and vertex offsets. The aux vector is
 [MKF, VFM, M_OFF, V_OFF, total] (train.py:108-112).
 
 Logits come in the port's layout, NCHW; targets from ``data/targets.py``.
+
+On a band of the frame's rows (the spatial mesh axis, ``rows``): the focal
+sums are over the band's pixels, which ``_rank_terms`` adds up over the
+world like any rank's pieces; a gather at a centre (``m_proj``) or vertex
+(``v_proj``) pixel is taken only by the rank whose band holds the pixel
+after the clip to the global map, and the other ranks give that entry
+weight 0, so that each object and each vertex counts once in the world's
+sums and counts. A vertex often lies in another band than its centre.
 """
 
 from __future__ import annotations
@@ -25,14 +33,25 @@ from rtm3d_tpu_torch.losses.focal import focal_from_sums, focal_sums, sigmoid_hm
 from rtm3d_tpu_torch.parallel.dist import all_reduce_sum, world_size
 
 
-def _gather_pixels(fmap: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """fmap (B, C, H, W); xy (B, ..., 2) int -> (B, ..., C), indices clipped."""
+def _gather_pixels(fmap: torch.Tensor, xy: torch.Tensor, rows=None):
+    """fmap (B, C, H, W); xy (B, ..., 2) int -> ((B, ..., C), owned),
+    indices clipped. With ``rows`` = (start, stop, height), ``fmap`` holds
+    rows [start, stop) of a map of ``height`` rows: ``y`` is clipped to the
+    whole map, and ``owned`` (B, ...) says which pixels fall in the band;
+    without, ``owned`` is None."""
     B, C, H, W = fmap.shape
     x = xy[..., 0].long().clamp(0, W - 1)
-    y = xy[..., 1].long().clamp(0, H - 1)
+    owned = None
+    if rows is None:
+        y = xy[..., 1].long().clamp(0, H - 1)
+    else:
+        start, stop, height = rows
+        y = xy[..., 1].long().clamp(0, height - 1)
+        owned = (y >= start) & (y < stop)
+        y = (y - start).clamp(0, H - 1)
     idx = (y * W + x).reshape(B, 1, -1).expand(B, C, -1)  # (B, C, M)
     out = fmap.reshape(B, C, H * W).gather(2, idx)
-    return out.transpose(1, 2).reshape(xy.shape[:-1] + (C,))
+    return out.transpose(1, 2).reshape(xy.shape[:-1] + (C,)), owned
 
 
 def _l1_sums(pred: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor):
@@ -84,6 +103,7 @@ def rtm3d_loss(
     focal_alpha: float = 2.0,
     focal_beta: float = 4.0,
     sample_mask: torch.Tensor | None = None,
+    rows: tuple | None = None,
 ):
     """logits: NCHW (m_hm_pred, ver_coor_pred, m_off_pred, v_off_pred).
 
@@ -96,6 +116,10 @@ def rtm3d_loss(
     of the global batch (every rank's rows), equal on every rank, and
     ``loss`` is this rank's share of it, to differentiate: the mean of
     the ranks' gradients is the global-batch loss's (``_rank_terms``).
+
+    ``rows``: (start, stop, height) when the logits and ``targets['m_hm']``
+    hold rows [start, stop) of maps of ``height`` rows (a band of the
+    spatial mesh axis); the per-slot targets keep the whole map's pixels.
     """
     m_hm_pred, ver_coor_pred, m_off_pred, v_off_pred = (l.float() for l in logits)
     mask, noise = targets["mask"], targets["noise_mask"]
@@ -113,13 +137,20 @@ def rtm3d_loss(
 
     # vertex-from-center coordinates at the gt centers, raw (rtm3d_loss.py:303-310)
     B, N = m_proj.shape[:2]
-    vc_pred = _gather_pixels(ver_coor_pred, m_proj).reshape(B, N, 8, 2)
+    vc_pred, m_owned = _gather_pixels(ver_coor_pred, m_proj, rows)
+    vc_pred = vc_pred.reshape(B, N, 8, 2)
     # vertex sub-pixel offsets at the gt vertex pixels (rtm3d_loss.py:312-321)
-    vo_pred = torch.sigmoid(_gather_pixels(v_off_pred, v_proj))
+    vo_pred, v_owned = _gather_pixels(v_off_pred, v_proj, rows)
+    vo_pred = torch.sigmoid(vo_pred)
     # center sub-pixel offsets (rtm3d_loss.py:323-329)
-    mo_pred = torch.sigmoid(_gather_pixels(m_off_pred, m_proj))
+    mo_pred = torch.sigmoid(_gather_pixels(m_off_pred, m_proj, rows)[0])
+    w_vo = w_vc
+    if rows is not None:  # each centre and vertex counted by the band that holds it
+        w_vo = w_vc & v_owned
+        w_vc = w_vc & m_owned[..., None]
+        m_valid = m_valid & m_owned
     l1s = [_l1_sums(vc_pred, targets["v_coor_off"], w_vc), _l1_sums(mo_pred, targets["m_off"], m_valid),
-           _l1_sums(vo_pred, targets["v_off"], w_vc)]
+           _l1_sums(vo_pred, targets["v_off"], w_vo)]
 
     weights = (w_mkf, w_vfm, w_m_off, w_v_off)
     share, value = _rank_terms(focal, l1s)

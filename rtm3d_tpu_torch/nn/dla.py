@@ -10,6 +10,12 @@ reference does (dla.py:275-279 passes ``num_convs=levels[0]``).
 
 The space-to-depth stem of the JAX package is train-only there and is not
 ported: the port always runs this plain branch.
+
+On a band of the frame's rows (the spatial mesh axis, ``parallel/spatial.py``)
+the convs exchange their halos (``nn/layers.py::Conv``: the stem's 7x7
+three rows each side, a 3x3 one, level1's stride-2 3x3 one above only);
+``Tree``'s ``MaxPool2d(stride, stride)`` needs none, since every band
+starts on a multiple of the deepest stride.
 """
 
 from __future__ import annotations

@@ -8,6 +8,12 @@ learned transposed-conv 2x upsample, concat with the next-lower feature, 1x1
 (b) fusion: every level's OUT_CHANNELS output is chained-upsampled to the
 lowest stride, then accumulated with a *detached* per-channel spatial softmax
 weight (``z += up(out_i) * softmax_HW(up(out_i).detach())``, kfpn:62-68).
+
+On a band of the frame's rows (the spatial mesh axis, ``spatial`` set by
+``parallel/spatial.py::attached``) the softmax is still over the whole
+frame's H x W: ``spatial.softmax_hw`` takes each channel's max and its sum
+of exponentials over every band. A band-local softmax would run, give
+finite numbers, and be wrong.
 """
 
 from __future__ import annotations
@@ -20,9 +26,12 @@ from torch import nn
 
 from rtm3d_tpu_torch.nn.layers import Conv, UpSample
 from rtm3d_tpu_torch.nn.spec import ShapeSpec
+from rtm3d_tpu_torch.parallel.spatial import softmax_hw
 
 
 class KeypointFPNFusion(nn.Module):
+    spatial = None  # the grid of this rank's band (parallel/spatial.py), or None
+
     def __init__(
         self,
         kfns: Sequence[str],
@@ -73,6 +82,9 @@ class KeypointFPNFusion(nn.Module):
             # free (B, H*W, C) view of a channels_last map took 113 ms of a
             # 358 ms b128 call on an H100 (chip_smoke.py's profile phase)
             flat = out_i.detach().reshape(b, c, h * w)
-            att = torch.softmax(flat, dim=-1).reshape(b, c, h, w)
+            if self.spatial is None:
+                att = torch.softmax(flat, dim=-1).reshape(b, c, h, w)
+            else:
+                att = softmax_hw(flat, self.spatial).reshape(b, c, h, w)
             z = z + out_i * att
         return z

@@ -48,6 +48,20 @@ would be the updated one, and the statistics would differ in their last
 bits) and it issues no all-reduce again. The backward all-reduce runs
 once, in the first pass's node.
 
+The spatial mesh axis (``parallel/spatial.py``): while a ``Grid`` is
+attached to the model (its ``spatial`` attribute), ``Conv``, ``UpSample``
+and ``MaxPool`` run on this rank's band of the frame's rows. ``Conv`` and
+``MaxPool`` take ``halo_rows`` rows of the neighbouring bands
+(``halo_exchange``, with 0 or -inf at the frame's edges) and then run with
+no padding in H and their own in W; ``UpSample`` takes one row from each
+side and crops its output band. Under autocast a float32 input is cast to
+autocast's dtype before the exchange, as the convolution would cast it
+(the same numbers, half the bytes). 1x1 convs exchange nothing. BatchNorm
+needs no change: its synchronised sums already run over every rank, and
+the ranks' (frame, band) pieces are disjoint, so ``n`` is the band's
+pixel count and the sums are the global batch's. With no grid, every op
+runs the path it always ran.
+
 Not ported, being exact reparameterisations of the plain convolution the
 port runs: the space-to-depth stem (train-only in the JAX package), the
 phase-decomposed upsample (off by default there) and the ``_upsample2x``
@@ -68,15 +82,33 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from rtm3d_tpu_torch.parallel.dist import all_reduce_sum, world_size
+from rtm3d_tpu_torch.parallel.spatial import halo_exchange, halo_rows
 
 BN_EPS = 1e-4
 BN_MOMENTUM = 0.03  # torch convention; flax momentum 0.97
 
 
+def autocast_input(x: torch.Tensor) -> torch.Tensor:
+    """``x`` cast as autocast casts a convolution's input (to its dtype,
+    when autocast is on for ``x``'s device and ``x`` is float32), so that a
+    halo is exchanged at the width the convolution reads it; else ``x``."""
+    kind = x.device.type
+    if x.dtype == torch.float32 and torch.is_autocast_enabled(kind):
+        return x.to(torch.get_autocast_dtype(kind))
+    return x
+
+
 class Conv(nn.Conv2d):
     """2D conv with torch-style symmetric padding ``dilation*(k-1)//2``.
     ``stop_bias_grad``: in train mode the bias gets no gradient (it feeds
-    BatchNorm; see the module docstring)."""
+    BatchNorm; see the module docstring). ``spatial``: the grid of the
+    band this conv runs on (see the module docstring), or None;
+    ``haloed_input``: on a band, the input arrives with this conv's halo
+    rows already exchanged (the header's four branches share one
+    exchange, ``nn/header.py``)."""
+
+    spatial = None
+    haloed_input = False
 
     def __init__(
         self,
@@ -98,9 +130,23 @@ class Conv(nn.Conv2d):
         self.stop_bias_grad = stop_bias_grad
 
     def forward(self, x):
+        if self.spatial is not None:
+            return self._banded(x)
         if self.training and self.stop_bias_grad and self.bias is not None:
             return self._conv_forward(x, self.weight, self.bias.detach())
         return super().forward(x)
+
+    def _banded(self, x):
+        bias = self.bias
+        if self.training and self.stop_bias_grad and bias is not None:
+            bias = bias.detach()
+        if not self.haloed_input:
+            x = halo_exchange(autocast_input(x), *self.halo(), 0.0, self.spatial)
+        return F.conv2d(x, self.weight, bias, self.stride, (0, self.padding[1]), self.dilation, self.groups)
+
+    def halo(self) -> tuple:
+        """``(top, bottom)`` rows this conv reads beyond its band."""
+        return halo_rows(self.kernel_size[0], self.stride[0], self.dilation[0], self.padding[0])
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -306,7 +352,12 @@ def bilinear_kernel_1d(k: int) -> np.ndarray:
 
 class UpSample(nn.Module):
     """Learned 2x upsampling: ConvTranspose(k=2*factor, s=factor,
-    p=factor/2), no bias (reference: models/nets/module.py:7-15)."""
+    p=factor/2), no bias (reference: models/nets/module.py:7-15). On a
+    band (``spatial``), output rows ``[f*a, f*b)`` read input rows ``a - 1``
+    to ``b``: one halo row each side, no padding in H, and the band cropped
+    from the output (the first ``f + p`` rows are the halo's)."""
+
+    spatial = None
 
     def __init__(self, channels: int, factor: int = 2):
         super().__init__()
@@ -325,7 +376,28 @@ class UpSample(nn.Module):
         w[:, 0] = torch.as_tensor(np.outer(b1, b1), dtype=w.dtype)
 
     def forward(self, x):
-        return self.conv_tran(x)
+        if self.spatial is None:
+            return self.conv_tran(x)
+        t = self.conv_tran
+        f, p, h = t.stride[0], t.padding[0], x.shape[2]
+        x = halo_exchange(autocast_input(x), 1, 1, 0.0, self.spatial)
+        y = F.conv_transpose2d(x, t.weight, t.bias, t.stride, (0, t.padding[1]), 0, t.groups, t.dilation)
+        return y[:, :, f + p:f + p + f * h]
+
+
+class MaxPool(nn.MaxPool2d):
+    """``nn.MaxPool2d`` (its padding is -inf); on a band (``spatial``) the
+    halo rows of ``halo_rows``, -inf at the frame's edges."""
+
+    spatial = None
+
+    def forward(self, x):
+        if self.spatial is None:
+            return super().forward(x)
+        k, s, p = self.kernel_size, self.stride, self.padding
+        top, bottom = halo_rows(k, s, self.dilation, p)
+        x = halo_exchange(x, top, bottom, float("-inf"), self.spatial)
+        return F.max_pool2d(x, k, s, (0, p), self.dilation, self.ceil_mode)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -19,6 +19,12 @@ recomputes, and save almost nothing. Segments a stage long keep one
 stage's activations at a time; the KFPN and the header, at stride 4 and
 256 channels, hold most of a DLA-34 step's activations, so they are
 segments too.
+
+Under the spatial mesh axis the train and eval-loss steps attach a
+``parallel/spatial.py::Grid`` to the model for the step
+(``spatial.attached``): the backbone, the KFPN and the header then run on
+this rank's band of each frame's rows, with the halo exchanges of
+``nn/layers.py``. ``deepest_stride`` is the unit the bands are cut in.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from rtm3d_tpu_torch.nn.dla import DLABase
 from rtm3d_tpu_torch.nn.header import RTM3DHeader
 from rtm3d_tpu_torch.nn.kfpn import KeypointFPNFusion
 from rtm3d_tpu_torch.nn.layers import init_weights, remat_segment
-from rtm3d_tpu_torch.nn.resnet import PoseResNet
+from rtm3d_tpu_torch.nn.resnet import PoseResNet, built_layers
 
 
 class RTM3D(nn.Module):
@@ -66,6 +72,16 @@ class RTM3D(nn.Module):
     def forward(self, x, remat: bool = False):
         feats = self.backbone(x, remat)
         return self.detect_header(remat_segment(self.kfpn_fusion, remat, feats), remat)
+
+
+def deepest_stride(cfg: Config) -> int:
+    """The largest stride the network of ``cfg`` reaches: DLA-34 always
+    runs ``level0..level5`` (32); a PoseResNet runs ``layer1`` (stride 4)
+    to the last layer ``built_layers`` keeps."""
+    name = str(cfg.MODEL.BACKBONE).upper()
+    if "RESNET" in name:
+        return 2 ** (len(built_layers(tuple(cfg.MODEL.KFNs))) + 1)
+    return 32
 
 
 def create_model(cfg: Config, generator: torch.Generator | None = None) -> RTM3D:

@@ -2,8 +2,9 @@
 
 Port of ``rtm3d_tpu/nn/resnet.py``; reference semantics:
 models/nets/resnet.py:116-238. Stem 7x7/s2 conv + BN + ReLU, 3x3/s2
-max-pool (``nn.MaxPool2d`` pads with -inf, as the JAX ``MaxPool`` does,
-``rtm3d_tpu/nn/layers.py:583-597``); layer1..layer4 of Basic or
+max-pool (``nn/layers.py::MaxPool``, ``nn.MaxPool2d``, pads with -inf, as
+the JAX ``MaxPool`` does, ``rtm3d_tpu/nn/layers.py:583-597``, and so does
+its halo exchange at the frame's edges on a band); layer1..layer4 of Basic or
 Bottleneck blocks; the forward returns the feature maps of the levels
 named in ``kfns`` (strides 4/8/16/32), in order.
 
@@ -21,7 +22,7 @@ from typing import Sequence
 import torch.nn.functional as F
 from torch import nn
 
-from rtm3d_tpu_torch.nn.layers import BatchNorm, Conv, remat_segment
+from rtm3d_tpu_torch.nn.layers import BatchNorm, Conv, MaxPool, remat_segment
 from rtm3d_tpu_torch.nn.spec import ShapeSpec
 
 
@@ -116,7 +117,7 @@ class PoseResNet(nn.Module):
         block, layers = RESNET_SPEC[depth]
         self.conv1 = Conv(3, 64, 7, 2)
         self.bn1 = BatchNorm(64)
-        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        self.maxpool = MaxPool(3, 2, 1)
         in_planes = 64
         self.layer_names = built_layers(self.kfns)
         for idx, name in enumerate(self.layer_names):

@@ -36,6 +36,21 @@ memory. The JAX step checkpoints its whole forward as one segment
 activation again while it recomputes. The eval-loss and detect steps
 never checkpoint.
 
+The spatial mesh axis (``parallel/spatial.py``): with ``S > 1`` ranks on
+it, each rank of a data group builds its group's full targets (the splat
+kernel on the whole map) and its full frames (the device warp, the cache
+gather and the photometric noise, seeded from the batch's seed column and
+so the same on every rank of the group), then keeps its band of the
+frames' rows and of the heatmap target. The model runs on the band under
+the step's ``Grid`` (``spatial.attached``, over the forward and the
+backward, so that a REMAT recompute exchanges its halos again, in the
+same order on every rank), and the loss counts each centre and vertex on
+the rank whose band holds it. The gradient all-reduce and its divisor,
+the world size, are the data-parallel ones: every rank's pieces of the
+global batch are disjoint. ``num_targets`` is summed over the data axis
+only, once per object. Adamax and the EMA are unchanged: the state is
+the same on every rank.
+
 Left out (ROADMAP.md): ``TPU.DONATE`` (no meaning in eager PyTorch: the
 step updates the state in place).
 """
@@ -54,8 +69,10 @@ from rtm3d_tpu_torch.data.targets import build_targets
 from rtm3d_tpu_torch.decode.peaks import decode_detections
 from rtm3d_tpu_torch.decode.solve3d import solve_bbox3d
 from rtm3d_tpu_torch.losses.rtm3d_loss import rtm3d_loss
+from rtm3d_tpu_torch.nn.model import deepest_stride
 from rtm3d_tpu_torch.ops.device_warp import device_warp
-from rtm3d_tpu_torch.parallel.dist import all_reduce_sum, world_size
+from rtm3d_tpu_torch.parallel.dist import all_reduce_sum, data_group, world_size
+from rtm3d_tpu_torch.parallel.spatial import attached, frame_grid
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -151,13 +168,20 @@ def _check_state(state, device: torch.device) -> None:
         raise ValueError(f"the train state lives on {got}, the step runs on {device}")
 
 
+def _grid(cfg: Config):
+    """The spatial grid of ``cfg``'s frames on this rank, None without one."""
+    return frame_grid(int(cfg.INPUT_SIZE[1]), deepest_stride(cfg))
+
+
 def _loss_from_batch(net: nn.Module, cfg: Config, batch: dict, sample_mask=None, variables=None,
-                     image_cache=None, remat: bool = False):
+                     image_cache=None, remat: bool = False, grid=None):
     """(loss, aux) of ``net`` on ``batch``, targets built on the device.
     ``variables``: parameters and buffers to evaluate in place of the
     module's own (``torch.func.functional_call``); ``image_cache``: the
     device dataset cache ``prepare_images`` gathers from; ``remat``: the
-    forward as checkpointed segments (``TPU.REMAT``, training only)."""
+    forward as checkpointed segments (``TPU.REMAT``, training only);
+    ``grid``: this rank's band of the spatial axis (``_grid``), attached to
+    ``net`` by the caller, or None."""
     targets = build_targets(
         batch["labels"],
         _feat_hw(cfg),
@@ -169,6 +193,15 @@ def _loss_from_batch(net: nn.Module, cfg: Config, batch: dict, sample_mask=None,
     )
     # NHWC -> an NCHW view with channels_last strides: no copy
     x = prepare_images(batch, cfg, image_cache).permute(0, 3, 1, 2)
+    rows = None
+    if grid is not None:  # this rank's band of the frames and of the heatmap target
+        a, b = grid.band
+        if x.shape[2] != grid.bands[-1][1]:
+            raise ValueError(f"the frames have {x.shape[2]} rows, the grid's bands {grid.bands}")
+        d = int(cfg.MODEL.DOWN_SAMPLE)
+        x = x[:, :, a:b].contiguous(memory_format=torch.channels_last)
+        rows = (a // d, b // d, targets["m_hm"].shape[2])
+        targets = dict(targets, m_hm=targets["m_hm"][:, :, rows[0]:rows[1]])
     dtype = compute_dtype(cfg)
     with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != torch.float32):
         logits = net(x, remat=remat) if variables is None else torch.func.functional_call(net, variables, (x,))
@@ -177,7 +210,7 @@ def _loss_from_batch(net: nn.Module, cfg: Config, batch: dict, sample_mask=None,
         logits, targets,
         w_mkf=t.W_MKF, w_vfm=t.W_VFM, w_m_off=t.W_M_OFF, w_v_off=t.W_V_OFF,
         focal_alpha=cfg.MODEL.FOCAL_LOSS_ALPHA, focal_beta=cfg.MODEL.FOCAL_LOSS_BEDA,
-        sample_mask=sample_mask,
+        sample_mask=sample_mask, rows=rows,
     )
 
 
@@ -239,8 +272,10 @@ def make_train_step(cfg: Config, device=None) -> Callable:
         batch = _to_device(batch, device)
         if state.step % k == 0:
             opt.zero_grad(set_to_none=True)
-        loss, aux = _loss_from_batch(net, cfg, batch, image_cache=image_cache, remat=remat)
-        loss.backward()
+        grid = _grid(cfg)
+        with attached(net, grid):  # over the backward too: a REMAT recompute runs on the band
+            loss, aux = _loss_from_batch(net, cfg, batch, image_cache=image_cache, remat=remat, grid=grid)
+            loss.backward()
         if (state.step + 1) % k == 0:
             grads = []
             for group in opt.param_groups:
@@ -268,7 +303,8 @@ def make_train_step(cfg: Config, device=None) -> Callable:
         metrics = {
             "loss": aux[4],
             "loss_items": aux,
-            "num_targets": all_reduce_sum(batch["labels"]["mask"].sum()),
+            # once per object: the ranks of a data group hold the same labels
+            "num_targets": all_reduce_sum(batch["labels"]["mask"].sum(), group=data_group()),
         }
         return state, metrics
 
@@ -298,9 +334,11 @@ def make_eval_loss_step(cfg: Config, device=None) -> Callable:
         net = state.model
         was_training = net.training
         net.eval()
+        grid = _grid(cfg)
         try:
-            with torch.no_grad():
-                loss, aux = _loss_from_batch(net, cfg, batch, sample_mask, state.eval_variables(), image_cache)
+            with torch.no_grad(), attached(net, grid):
+                loss, aux = _loss_from_batch(net, cfg, batch, sample_mask, state.eval_variables(), image_cache,
+                                             grid=grid)
         finally:
             net.train(was_training)
         return {"loss": aux[4], "loss_items": aux}
@@ -366,7 +404,7 @@ def make_detect_step(
     device = resolve_device(device)
     dtype = compute_dtype(cfg)
     net = copy.deepcopy(model).to(device=device, dtype=dtype, memory_format=torch.channels_last)
-    net.eval()
+    net.eval()  # frames whole: the spatial axis replicates serving (parallel/mesh.py:147-158)
     topk = int(cfg.DETECTOR.TOPK_CANDIDATES)
     thresh = float(cfg.DETECTOR.SCORE_THRESH)
     down = float(cfg.MODEL.DOWN_SAMPLE)
