@@ -21,6 +21,7 @@ from rtm3d_tpu_torch.config import Config, load_config
 from rtm3d_tpu_torch.nn.model import create_model
 from rtm3d_tpu_torch.train.checkpoint import load_detect_weights
 from rtm3d_tpu_torch.train.step import make_detect_step
+from rtm3d_tpu_torch.utils.profiling import count, span
 
 
 class Detector:
@@ -75,8 +76,11 @@ class Detector:
         (B, 6) and ``border`` (B, 3) the images are raw canvases the step
         resamples on the device (the device-warp raw mode). Returns host
         numpy arrays."""
-        out = self._detect(images, K, warp=warp, border=border)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        with span("detect.call"):
+            out = self._detect(images, K, warp=warp, border=border)
+            with span("detect.output"):
+                count("host_syncs", len(out))  # each .cpu() waits for the device
+                return {k: v.cpu().numpy() for k, v in out.items()}
 
     def to_objects(self, det: Dict[str, np.ndarray]) -> List[List[dict]]:
         """Unpack fixed arrays into per-image lists of accepted detections."""

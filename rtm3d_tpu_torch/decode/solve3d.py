@@ -25,6 +25,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from rtm3d_tpu_torch.utils.profiling import count
+
 # corner sign pattern * 0.5, shape (3, 8) (model_utils.py:275-281)
 _signs = []
 for _i in (1, -1):
@@ -182,6 +184,7 @@ def solve_bbox3d(
     uv = v_proj.reshape(-1, 8, 2).float()
     cc = cls.reshape(-1).long()
     Kf = K.reshape(-1, 3, 3).float()
+    count("host_syncs", 2)  # a host list's copy to the device waits for the device
     dim_ref = torch.as_tensor(dim_ref, dtype=torch.float32, device=dev)
     ref_loc = torch.as_tensor(ref_loc, dtype=torch.float32, device=dev)
     d0 = dim_ref[cc.clamp(0, dim_ref.shape[0] - 1)]  # (M, 3) h, w, l

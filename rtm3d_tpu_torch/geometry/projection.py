@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from rtm3d_tpu_torch.utils.profiling import count
+
 CORNER_SIGNS = torch.tensor(
     [[i, j, k] for i in (1, -1) for j in (1, -1) for k in (1, -1)] + [[0, 0, 0]],
     dtype=torch.float32,
@@ -44,6 +46,7 @@ def corners_3d(dimension: torch.Tensor, location: torch.Tensor, ry: torch.Tensor
     ``bottom_center=True`` reads location as the KITTI bottom-face center
     (the box center sits h/2 above it); False as the geometric center.
     """
+    count("host_syncs")  # a host tensor's copy to the device waits for the device
     signs = CORNER_SIGNS.to(dimension)
     half = torch.stack([dimension[..., 2], dimension[..., 0], dimension[..., 1]], -1) * 0.5
     rotated = torch.matmul(rotation_y(ry), half[..., :, None] * signs)

@@ -40,6 +40,7 @@ from rtm3d_tpu_torch.nn.header import RTM3DHeader
 from rtm3d_tpu_torch.nn.kfpn import KeypointFPNFusion
 from rtm3d_tpu_torch.nn.layers import init_weights, remat_segment
 from rtm3d_tpu_torch.nn.resnet import PoseResNet, built_layers
+from rtm3d_tpu_torch.utils.profiling import span
 
 
 class RTM3D(nn.Module):
@@ -70,8 +71,12 @@ class RTM3D(nn.Module):
         )
 
     def forward(self, x, remat: bool = False):
-        feats = self.backbone(x, remat)
-        return self.detect_header(remat_segment(self.kfpn_fusion, remat, feats), remat)
+        with span("net.backbone"):
+            feats = self.backbone(x, remat)
+        with span("net.kfpn"):
+            fused = remat_segment(self.kfpn_fusion, remat, feats)
+        with span("net.header"):
+            return self.detect_header(fused, remat)
 
 
 def deepest_stride(cfg: Config) -> int:

@@ -73,6 +73,7 @@ from rtm3d_tpu_torch.nn.model import deepest_stride
 from rtm3d_tpu_torch.ops.device_warp import device_warp
 from rtm3d_tpu_torch.parallel.dist import all_reduce_sum, data_group, world_size
 from rtm3d_tpu_torch.parallel.spatial import attached, frame_grid
+from rtm3d_tpu_torch.utils.profiling import count, span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -101,6 +102,7 @@ def normalize_images(imgs: torch.Tensor, cfg: Config) -> torch.Tensor:
     Float inputs pass through (already normalised by the host pipeline,
     reference Normalize transforms.py:110-120)."""
     if imgs.dtype == torch.uint8:
+        count("host_syncs", 2)  # a host list's copy to the device waits for the device
         mean = torch.tensor(cfg.DATASET.MEAN, dtype=torch.float32, device=imgs.device)
         std = torch.tensor(cfg.DATASET.STD, dtype=torch.float32, device=imgs.device)
         return (imgs.float() / 255.0 - mean) / std
@@ -143,6 +145,7 @@ def prepare_images(batch: dict, cfg: Config, image_cache: torch.Tensor | None = 
         ph = batch["photo"].to(torch.float32)
         x = imgs.to(torch.float32) * ph[:, 0, None, None, None] + ph[:, 1, None, None, None] * 255.0
         seed = 0
+        count("host_syncs")
         for s in ph[:, 3].tolist():
             seed = (seed * 1000003 + int(s)) % (2**63)
         gen = torch.Generator(device=x.device).manual_seed(seed)
@@ -182,17 +185,19 @@ def _loss_from_batch(net: nn.Module, cfg: Config, batch: dict, sample_mask=None,
     forward as checkpointed segments (``TPU.REMAT``, training only);
     ``grid``: this rank's band of the spatial axis (``_grid``), attached to
     ``net`` by the caller, or None."""
-    targets = build_targets(
-        batch["labels"],
-        _feat_hw(cfg),
-        len(cfg.DATASET.OBJs),
-        down_ratio=float(cfg.MODEL.DOWN_SAMPLE),
-        gaussian_gen_type=cfg.DATASET.GAUSSIAN_GEN_TYPE,
-        bbox_area_max=cfg.DATASET.BBOX_AREA_MAX,
-        bbox_area_min=cfg.DATASET.BBOX_AREA_MIN,
-    )
-    # NHWC -> an NCHW view with channels_last strides: no copy
-    x = prepare_images(batch, cfg, image_cache).permute(0, 3, 1, 2)
+    with span("train.targets"):
+        targets = build_targets(
+            batch["labels"],
+            _feat_hw(cfg),
+            len(cfg.DATASET.OBJs),
+            down_ratio=float(cfg.MODEL.DOWN_SAMPLE),
+            gaussian_gen_type=cfg.DATASET.GAUSSIAN_GEN_TYPE,
+            bbox_area_max=cfg.DATASET.BBOX_AREA_MAX,
+            bbox_area_min=cfg.DATASET.BBOX_AREA_MIN,
+        )
+    with span("train.input"):
+        # NHWC -> an NCHW view with channels_last strides: no copy
+        x = prepare_images(batch, cfg, image_cache).permute(0, 3, 1, 2)
     rows = None
     if grid is not None:  # this rank's band of the frames and of the heatmap target
         a, b = grid.band
@@ -206,12 +211,13 @@ def _loss_from_batch(net: nn.Module, cfg: Config, batch: dict, sample_mask=None,
     with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != torch.float32):
         logits = net(x, remat=remat) if variables is None else torch.func.functional_call(net, variables, (x,))
     t = cfg.TRAINING
-    return rtm3d_loss(
-        logits, targets,
-        w_mkf=t.W_MKF, w_vfm=t.W_VFM, w_m_off=t.W_M_OFF, w_v_off=t.W_V_OFF,
-        focal_alpha=cfg.MODEL.FOCAL_LOSS_ALPHA, focal_beta=cfg.MODEL.FOCAL_LOSS_BEDA,
-        sample_mask=sample_mask, rows=rows,
-    )
+    with span("train.loss"):
+        return rtm3d_loss(
+            logits, targets,
+            w_mkf=t.W_MKF, w_vfm=t.W_VFM, w_m_off=t.W_M_OFF, w_v_off=t.W_V_OFF,
+            focal_alpha=cfg.MODEL.FOCAL_LOSS_ALPHA, focal_beta=cfg.MODEL.FOCAL_LOSS_BEDA,
+            sample_mask=sample_mask, rows=rows,
+        )
 
 
 def _average_over_ranks(grads, divisor: int) -> None:
@@ -265,47 +271,54 @@ def make_train_step(cfg: Config, device=None) -> Callable:
     remat = bool(cfg.TPU.get("REMAT", False))
 
     def train_step(state, batch, image_cache=None):
+        with span("train.step"):
+            return _train_step(state, batch, image_cache)
+
+    def _train_step(state, batch, image_cache):
         _check_state(state, device)
         net, opt, k = state.model, state.optimizer, state.accumulate_steps
         ranks = world_size()
         net.train()
-        batch = _to_device(batch, device)
+        with span("train.input"):
+            batch = _to_device(batch, device)
         if state.step % k == 0:
             opt.zero_grad(set_to_none=True)
         grid = _grid(cfg)
         with attached(net, grid):  # over the backward too: a REMAT recompute runs on the band
             loss, aux = _loss_from_batch(net, cfg, batch, image_cache=image_cache, remat=remat, grid=grid)
-            loss.backward()
-        if (state.step + 1) % k == 0:
-            grads = []
-            for group in opt.param_groups:
-                for p in group["params"]:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                    elif k > 1 and ranks == 1:
-                        p.grad.div_(k)
-                    grads.append(p.grad)
-            if ranks > 1:
-                _average_over_ranks(grads, ranks * k)
-            lr = state.schedule(state.updates)  # update t uses the schedule at t
-            for group in opt.param_groups:
-                group["lr"] = group["lr_factor"] * lr
-            opt.step()
-            state.updates += 1
-        if state.ema is not None:
-            d = decay * (1.0 - math.exp(-(state.step + 1) / 2000.0))
-            params = dict(net.named_parameters())
-            with torch.no_grad():
-                shadow = list(state.ema.values())
-                torch._foreach_mul_(shadow, d)
-                torch._foreach_add_(shadow, [params[n].detach() for n in state.ema], alpha=1.0 - d)
-        state.step += 1
-        metrics = {
-            "loss": aux[4],
-            "loss_items": aux,
-            # once per object: the ranks of a data group hold the same labels
-            "num_targets": all_reduce_sum(batch["labels"]["mask"].sum(), group=data_group()),
-        }
+            with span("train.backward"):
+                loss.backward()
+        with span("train.update"):
+            if (state.step + 1) % k == 0:
+                grads = []
+                for group in opt.param_groups:
+                    for p in group["params"]:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                        elif k > 1 and ranks == 1:
+                            p.grad.div_(k)
+                        grads.append(p.grad)
+                if ranks > 1:
+                    _average_over_ranks(grads, ranks * k)
+                lr = state.schedule(state.updates)  # update t uses the schedule at t
+                for group in opt.param_groups:
+                    group["lr"] = group["lr_factor"] * lr
+                opt.step()
+                state.updates += 1
+            if state.ema is not None:
+                d = decay * (1.0 - math.exp(-(state.step + 1) / 2000.0))
+                params = dict(net.named_parameters())
+                with torch.no_grad():
+                    shadow = list(state.ema.values())
+                    torch._foreach_mul_(shadow, d)
+                    torch._foreach_add_(shadow, [params[n].detach() for n in state.ema], alpha=1.0 - d)
+            state.step += 1
+            metrics = {
+                "loss": aux[4],
+                "loss_items": aux,
+                # once per object: the ranks of a data group hold the same labels
+                "num_targets": all_reduce_sum(batch["labels"]["mask"].sum(), group=data_group()),
+            }
         return state, metrics
 
     return train_step
@@ -350,32 +363,39 @@ def attach_3d(det: Dict[str, torch.Tensor], K: torch.Tensor, cfg: Config) -> Dic
     """Complete a decoded detection dict with the 3D recovery: batched LM
     solve from the regressed vertices + residual acceptance
     (reference optim_decode_bbox3d, model_utils.py:264-312)."""
-    topk = det["v_proj"].shape[1]
-    Kb = K[:, None].expand(K.shape[0], topk, 3, 3)
-    sol = solve_bbox3d(
-        det["v_proj"], det["cls"], Kb,
-        cfg.DETECTOR.dim_ref, cfg.DETECTOR.REF_LOC,
-        iters=int(cfg.DETECTOR.SOLVER_ITERS),
-        prior_weight=float(cfg.DETECTOR.get("DIM_PRIOR_WEIGHT", 0.0)),
-    )
-    det = dict(det)
-    det.update(sol)
-    det["accepted"] = det["valid"] & (sol["cost"] < float(cfg.DETECTOR.RESIDUAL_THRESH))
-    return det
+    with span("detect.solve"):
+        topk = det["v_proj"].shape[1]
+        Kb = K[:, None].expand(K.shape[0], topk, 3, 3)
+        sol = solve_bbox3d(
+            det["v_proj"], det["cls"], Kb,
+            cfg.DETECTOR.dim_ref, cfg.DETECTOR.REF_LOC,
+            iters=int(cfg.DETECTOR.SOLVER_ITERS),
+            prior_weight=float(cfg.DETECTOR.get("DIM_PRIOR_WEIGHT", 0.0)),
+        )
+        det = dict(det)
+        det.update(sol)
+        det["accepted"] = det["valid"] & (sol["cost"] < float(cfg.DETECTOR.RESIDUAL_THRESH))
+        return det
 
 
-def _detect_inputs(images, K, warp, border, cfg: Config, device: torch.device):
-    """The detect steps' input stage on ``device``: (B, H, W, 3) normalised
-    frames (the device warp's, with ``warp``; uint8 frames normalised,
-    float frames as they are) and float32 K."""
-    images = torch.as_tensor(images).to(device, non_blocking=True)
-    K = torch.as_tensor(K, dtype=torch.float32).to(device, non_blocking=True)
-    if warp is not None:
-        batch = {"image": images, "warp": torch.as_tensor(warp).to(device, non_blocking=True)}
-        if border is not None:
-            batch["border"] = torch.as_tensor(border).to(device, non_blocking=True)
-        images = prepare_images(batch, cfg)
-    return normalize_images(images, cfg), K
+def _detect_inputs(images, K, warp, border, cfg: Config, device: torch.device, dtype: torch.dtype = torch.float32,
+                   nchw: bool = False):
+    """The detect steps' input stage on ``device``: normalised frames (the
+    device warp's, with ``warp``; uint8 frames normalised, float frames as
+    they are) in ``dtype``, (B, H, W, 3) or with ``nchw`` (B, 3, H, W)
+    with channels_last strides, and float32 K."""
+    with span("detect.input"):
+        images = torch.as_tensor(images).to(device, non_blocking=True)
+        K = torch.as_tensor(K, dtype=torch.float32).to(device, non_blocking=True)
+        if warp is not None:
+            batch = {"image": images, "warp": torch.as_tensor(warp).to(device, non_blocking=True)}
+            if border is not None:
+                batch["border"] = torch.as_tensor(border).to(device, non_blocking=True)
+            images = prepare_images(batch, cfg)
+        images = normalize_images(images, cfg)
+        if nchw:  # a view: no copy
+            images = images.permute(0, 3, 1, 2)
+        return images.to(dtype), K
 
 
 def make_detect_step(
@@ -411,9 +431,8 @@ def make_detect_step(
 
     @torch.inference_mode()
     def detect_step(images, K, warp=None, border=None):
-        images, K = _detect_inputs(images, K, warp, border, cfg, device)
-        # NHWC -> an NCHW view with channels_last strides: no copy
-        logits = net(images.permute(0, 3, 1, 2).to(dtype))
+        images, K = _detect_inputs(images, K, warp, border, cfg, device, dtype, nchw=True)
+        logits = net(images)
         det = decode_detections(logits, score_thresh=thresh, topk=topk, down_sample=down)
         if with_3d:
             return attach_3d(det, K, cfg)
@@ -441,7 +460,7 @@ def make_detect_step_from_export(exported, cfg: Config, device=None) -> Callable
     @torch.inference_mode()
     def detect_step(images, K, warp=None, border=None):
         images, K = _detect_inputs(images, K, warp, border, cfg, device)
-        out = exported(images.to(torch.float32))
+        out = exported(images)
         if isinstance(out, dict):  # a --with-decode artifact
             det = dict(out)
         else:

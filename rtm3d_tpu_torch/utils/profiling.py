@@ -1,19 +1,28 @@
-"""Timing and tracing utilities.
+"""Tracing utilities.
 
 Port of ``rtm3d_tpu/utils/profiling.py``. The reference times with
 wall-clock prints (detect.py:55-60, train_multi_gpu.py:173-199). Here:
 
-- ``Timer``: an accumulating named wall-clock timer that waits for the
-  device before it reads the clock (the JAX ``Timer`` waits with
-  ``jax.block_until_ready(sync)``; this one with
-  ``torch.cuda.synchronize`` when ``sync`` names or holds a CUDA device);
 - ``device_trace(logdir)``: the counterpart of ``xla_trace``, a
   ``torch.profiler`` capture of CPU and, where there is a GPU, CUDA
   activity, written as a Chrome trace (``chrome://tracing`` or Perfetto)
   under ``logdir``; no TensorBoard import;
-- ``device_memory_stats``: the counterpart of ``device_memory_stats``,
-  ``torch.cuda.memory_allocated`` per GPU (the reference prints
-  ``torch.cuda.memory_cached``, train.py:108).
+- ``span(name)``: a ``record_function`` at a layer boundary of the hot
+  path, entered only while a profiler records. The profiler puts it and
+  the device's kernels on one timeline, so a kernel is put down to the
+  span its launch fell in, and an idle gap of the device to the span the
+  host was in. A span's parent is the span around it on its thread; the
+  root span of a call (``detect.call``) or a step (``train.step``) is what
+  the spans of one call share;
+- ``count(name, n)`` and ``counters``: process-wide counts taken at the
+  same boundaries, under the same condition. ``host_syncs``: each point
+  of the hot path where the host waits for the device, reading a result
+  back (``.cpu()``, ``.tolist()``) or copying a host tensor or list to it
+  (a copy that is not ``non_blocking`` waits for the stream first).
+
+With no profiler a span costs one flag read and enters nothing: nothing
+reaches ``torch.ops.profiler``, so a ``torch.export`` graph holds no span,
+and no counter moves.
 """
 
 from __future__ import annotations
@@ -21,51 +30,28 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from collections import defaultdict
-from typing import Dict
+from collections import Counter
 
 import torch
+from torch.autograd import profiler as _profiler
+from torch.autograd.profiler import record_function
+
+counters: Counter = Counter()
+_OFF = contextlib.nullcontext()
 
 
-def _cuda_device(sync):
-    """The CUDA device ``sync`` names or holds, else None: a device or
-    its name, a tensor, or a list, tuple or dict of tensors."""
-    if isinstance(sync, (str, torch.device)):
-        d = torch.device(sync)
-        return d if d.type == "cuda" else None
-    if torch.is_tensor(sync):
-        return sync.device if sync.is_cuda else None
-    items = sync.values() if isinstance(sync, dict) else sync if isinstance(sync, (list, tuple)) else ()
-    return next((d for d in map(_cuda_device, items) if d is not None), None)
+def span(name: str):
+    """``with span("net.backbone"): ...``: a ``record_function`` while a
+    profiler records, else a context that does nothing."""
+    if _profiler._is_profiler_enabled:  # read at each call: the profiler sets it
+        return record_function(name)
+    return _OFF
 
 
-class Timer:
-    """Accumulating named wall-clock timer with device sync."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def section(self, name: str, sync=None):
-        """Time the block; with ``sync`` on a GPU (a device, a tensor or a
-        container of tensors), wait for that device's work first."""
-        t0 = time.perf_counter()
-        yield
-        device = _cuda_device(sync) if sync is not None else None
-        if device is not None:
-            torch.cuda.synchronize(device)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-
-    def summary(self) -> str:
-        return " ".join(
-            f"{k}={self.totals[k] / max(self.counts[k], 1) * 1e3:.1f}ms" for k in sorted(self.totals)
-        )
-
-    def reset(self):
-        self.totals.clear()
-        self.counts.clear()
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``counters[name]`` while a profiler records."""
+    if _profiler._is_profiler_enabled:
+        counters[name] += n
 
 
 @contextlib.contextmanager
@@ -80,9 +66,3 @@ def device_trace(logdir: str):
     path = os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json")
     with profile(activities=acts, on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
         yield prof
-
-
-def device_memory_stats() -> Dict[str, int]:
-    """Bytes allocated by tensors on each GPU, ``{"cuda:0": n, ...}``;
-    empty without a GPU."""
-    return {f"cuda:{i}": int(torch.cuda.memory_allocated(i)) for i in range(torch.cuda.device_count())}
