@@ -22,8 +22,8 @@ phases of one JSON line each; any failure exits non-zero:
   logits   full-width DLA-34 1280x384 fp32 forward, port on the GPU against
            the port on the CPU (TF32 off), max |d| <= 1e-4 of max |logit|;
   serve    DLA-34 1280x384 batch 128 bf16 detect through Detector, distinct
-           uint8 frames per call, a KITTI K: exactly 2 LM launches per call,
-           finite outputs of the right shapes, images/s from CUDA events;
+           uint8 frames per call, a KITTI K: exactly 2 LM launches and 2
+           KFPN fusion launches per call, finite outputs of the right shapes, images/s from CUDA events;
   profile  torch.profiler over two serving calls: device time by kernel,
            idle share; the full table goes to chip_smoke_out/serve_profile.json;
   splat    the heatmap splat kernel against its plain PyTorch version at the
@@ -33,6 +33,15 @@ phases of one JSON line each; any failure exits non-zero:
            classes on one center): max |d| <= 1e-6 and the same pixels equal
            to 1.0; CUDA-event times, bytes, operations and the bound, the
            mean live slots per tile;
+  kfpn_fuse  the KFPN fusion kernel (csrc/kfpn_fuse.cu) at the detect
+           path's maps, x0 and three upsampled maps of 256 x 104 x 320
+           (1280x416 at stride 4) in bf16, channels_last, at b32 and b1:
+           its error against the float64 fusion no larger than PyTorch's
+           bf16 composition's (max and mean), z channels_last, two runs
+           bit-equal, two launches a call; CUDA-event ms of the kernel, of
+           the plain version (kfpn_fuse_reference) and of the composition,
+           each pass's device ms (torch.profiler), the bytes and the bound
+           at 3.35 TB/s;
   train_fp32  DLA-34 384x128 batch 2 fp32 (TF32 off), one make_train_step on
            the GPU against the same step on the CPU, same seed-0 weights and
            batch: loss and aux within 1e-4 relative, gradients within
@@ -46,7 +55,7 @@ phases of one JSON line each; any failure exits non-zero:
            synthetic uint8 frames and label blocks (a quarter of the slots
            masked, a tenth noise): 3 warm-up steps, 10 timed steps on
            distinct batches, 2 eval-loss steps; finite loss and aux, one
-           splat launch per step; then 20 steps on one batch with
+           splat launch per step and no KFPN fusion launch; then 20 steps on one batch with
            WARMUP_ITERS 0, whose loss must fall; images/s, ms per step and
            peak memory;
   train_profile  torch.profiler over two train steps, the table to
@@ -98,7 +107,7 @@ phases of one JSON line each; any failure exits non-zero:
            the optical axis) finds the network's peaks (so that the LM
            converges and accepts lanes): device and wall images/s, each batch's call and the loop's
            wait for it; gates: a result file per frame, img_size [1280, 416],
-           2 LM launches per batch, each launch on its own lanes (M = 6,400
+           2 KFPN fusion launches and 2 LM launches per batch, each LM launch on its own lanes (M = 6,400
            and 9,600) with at least one lane accepted, against the plain LM
            as in the lm phases (accept decisions, accepted costs); then those
            shapes on synthetic lanes (lm_M6400_prior20, lm_M9600_prior0).
@@ -147,7 +156,9 @@ phases of one JSON line each; any failure exits non-zero:
            each accepting lanes and held to the plain LM as in
            detect_cli_device); cli.evaluate --int8 --int8-guard 0.5
            over the test split (three finite tables; the guard's verdict is
-           recorded); 52 quantize and conv_s8 launches per int8 call; the
+           recorded); 52 quantize and conv_s8 launches per int8 call, 2
+           KFPN fusion launches per forward of the three cli.detect runs
+           (calibration's sweeps and the gate's steps included); the
            steady int8 call against the bf16 one at b32 (2D), and
            torch.profiler over two int8 calls (chip_smoke_out/int8_profile.json);
   fast_preproc, mosaic  the data phase's host-mode run again with
@@ -356,6 +367,8 @@ PARITY_FRAMES, PARITY_BATCH = 4, 3  # detect_cli_parity: 2 batches, the second p
 PARITY_GATE = {"box_agree_share": 0.99, "score": 1e-4 + 1e-9, "angle": 0.05, "dim": 0.1, "loc": 0.4}
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 INT8_REPLACES = "no TPU kernel; XLA's int8 conv at rtm3d_tpu/nn/quant.py:254-262"
+KFPN_FUSE_REPLACES = "no TPU kernel; XLA's fusion of rtm3d_tpu/nn/kfpn.py"
+KFPN_FUSE_MAP = (256, 104, 320)  # the KFPN's maps at stride 4 of the benchmark cells' 1280x416 frames
 MOSAIC_WORKERS = 4
 INT8_CHECK_BATCH = 2  # int8_kernel: the batch of the bit-equality checks (the plain conv runs in float64)
 # int8_logits: DLA-34 1280x416 b2 fp32 (TF32 off), mse scales, the int8 network on the card against the CPU.
@@ -492,7 +505,7 @@ def logits_phase(cfg_base, nn_model) -> None:
         raise AssertionError(f"GPU fp32 logits disagree with the CPU: {rec}")
 
 
-def serve_phase(cfg_base, nn_model, lm, splat, Detector) -> dict:
+def serve_phase(cfg_base, nn_model, lm, splat, kf, Detector) -> dict:
     cfg = cfg_base.clone()
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
     det = Detector(cfg, nn_model.create_model(cfg, torch.Generator().manual_seed(0)), device="cuda")
@@ -506,7 +519,7 @@ def serve_phase(cfg_base, nn_model, lm, splat, Detector) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    lm.lm_solve.launches = splat.splat_heatmap.launches = 0
+    lm.lm_solve.launches = splat.splat_heatmap.launches = kf.kfpn_fuse.launches = 0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
@@ -516,6 +529,7 @@ def serve_phase(cfg_base, nn_model, lm, splat, Detector) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches, splat_launches = lm.lm_solve.launches, splat.splat_heatmap.launches
+    kfpn_launches = kf.kfpn_fuse.launches
     dev_ms = start.elapsed_time(end)
 
     shapes = {"cls": (BATCH, TOPK), "scores": (BATCH, TOPK), "valid": (BATCH, TOPK),
@@ -540,14 +554,14 @@ def serve_phase(cfg_base, nn_model, lm, splat, Detector) -> dict:
         "net_tflops_achieved": net_flops * BATCH * SERVE_CALLS / (dev_ms / 1e3) / 1e12,
         "net_bound_ms_per_call": net_flops * BATCH / PEAK_BF16_FLOPS * 1e3,
         "wall_images_per_s": BATCH * SERVE_CALLS / wall_s,
-        "lm_launches": launches, "lm_launches_per_call": launches / SERVE_CALLS,
+        "lm_launches": launches, "lm_launches_per_call": launches / SERVE_CALLS, "kfpn_launches": kfpn_launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "valid_frac": float(out["valid"].mean()), "accepted_frac": float(out["accepted"].mean()),
     }
     emit("serve", **rec)
-    if launches != 2 * SERVE_CALLS or splat_launches != 0:
-        raise AssertionError(f"serve: {launches} LM launches in {SERVE_CALLS} calls, expected 2 per call "
-                             f"(and {splat_launches} splat launches, expected none)")
+    if launches != 2 * SERVE_CALLS or splat_launches != 0 or kfpn_launches != 2 * SERVE_CALLS:
+        raise AssertionError(f"serve: {launches} LM and {kfpn_launches} KFPN fusion launches in {SERVE_CALLS} "
+                             f"calls, expected 2 of each per call (and {splat_launches} splat launches, expected none)")
     profile_calls("profile", lambda: det(frames[0], K), 2, "chip_smoke_out/serve_profile.json")
     return rec
 
@@ -621,6 +635,66 @@ def splat_phase(splat, inputs, feat_hw, num_classes: int, name: str) -> dict:
     return rec
 
 
+def kfpn_fusion_maps(batch: int):
+    """x0 and three upsampled maps as the detect path holds them at 1280x416
+    (``KFPN_FUSE_MAP``, channels_last, bf16); the upsampled maps at three
+    times x0's spread, so that the softmax weights are peaked."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    maps = [torch.randn((batch, *KFPN_FUSE_MAP[1:], KFPN_FUSE_MAP[0]), generator=g, device="cuda")
+            .mul_(3.0 if i else 1.0).bfloat16().permute(0, 3, 1, 2) for i in range(4)]
+    return maps[0], maps[1:]
+
+
+def composed_fusion(x0, ups):
+    """The KFPN's composed loop (nn/kfpn.py), in the maps' dtype."""
+    z = x0
+    for u in ups:
+        b, c, h, w = u.shape
+        z = z + u * torch.softmax(u.reshape(b, c, h * w), -1).reshape(b, c, h, w)
+    return z
+
+
+def kfpn_fuse_phase(kf) -> dict:
+    """The fusion kernel against the float64 fusion, beside the bf16
+    composition, at b32 and b1; times and the bound (module docstring)."""
+    recs = {}
+    for batch in (32, 1):
+        x0, ups = kfpn_fusion_maps(batch)
+        before = kf.kfpn_fuse.launches
+        z = kf.kfpn_fuse(x0, ups)
+        torch.cuda.synchronize()
+        launches = kf.kfpn_fuse.launches - before
+        again = kf.kfpn_fuse(x0, ups)
+        exact = kf.kfpn_fuse_reference(x0.double(), [u.double() for u in ups])
+        err = (z.double() - exact).abs()
+        plain_err = (composed_fusion(x0, ups).double() - exact).abs()
+        errs = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+                "composed_max_abs_err": plain_err.max().item(), "composed_mean_abs_err": plain_err.mean().item()}
+        del exact, err, plain_err
+        nbytes = kf.kfpn_fuse_bytes(batch, KFPN_FUSE_MAP[0], KFPN_FUSE_MAP[1:], len(ups), x0.element_size())
+        stats_ms, timed_by = kernel_device_ms(lambda: kf.kfpn_fuse(x0, ups), 20, "stats_kernel")
+        apply_ms, _ = kernel_device_ms(lambda: kf.kfpn_fuse(x0, ups), 20, "apply_kernel")
+        rec = {
+            "shape": [batch, *KFPN_FUSE_MAP], "ups": len(ups), "dtype": str(x0.dtype), **errs,
+            "channels_last": z.is_contiguous(memory_format=torch.channels_last), "bit_equal": torch.equal(z, again),
+            "launches_per_call": launches,
+            "kernel_ms": cuda_time_ms(lambda: kf.kfpn_fuse(x0, ups), 20, 3),
+            "stats_ms": stats_ms, "apply_ms": apply_ms, "timed_by": timed_by,
+            "plain_ms": cuda_time_ms(lambda: kf.kfpn_fuse_reference(x0, ups), 5, 1),
+            "composed_ms": cuda_time_ms(lambda: composed_fusion(x0, ups), 10, 2),
+            "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+        }
+        emit(f"kfpn_fuse_b{batch}", **rec)
+        if (launches != 2 or not rec["channels_last"] or not rec["bit_equal"]
+                or not errs["max_abs_err"] <= errs["composed_max_abs_err"]
+                or not errs["mean_abs_err"] <= errs["composed_mean_abs_err"]):
+            raise AssertionError(f"kfpn_fuse kernel: {rec}")
+        recs[batch] = rec
+        del x0, ups, z, again
+        torch.cuda.empty_cache()
+    return recs
+
+
 def train_fp32_phase(cfg_base, nn_model, step_mod, state_mod) -> None:
     """One train step of DLA-34 at 384x128 batch 2 in fp32 on the GPU against
     the same step on the CPU. The float32 gradient of this network at random
@@ -675,7 +749,7 @@ def train_batches() -> list:
     ]
 
 
-def train_phase(nn_model, step_mod, state_mod, load_config, lm, splat) -> dict:
+def train_phase(nn_model, step_mod, state_mod, load_config, lm, splat, kf) -> dict:
     """configs/rtm3d_dla34_kitti_tpu.yaml at full width on distinct synthetic
     batches, then the loss-falls check on one repeated batch."""
     cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -695,7 +769,7 @@ def train_phase(nn_model, step_mod, state_mod, load_config, lm, splat) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    lm.lm_solve.launches = splat.splat_heatmap.launches = 0
+    lm.lm_solve.launches = splat.splat_heatmap.launches = kf.kfpn_fuse.launches = 0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     metrics = []
     t0 = time.perf_counter()
@@ -714,6 +788,9 @@ def train_phase(nn_model, step_mod, state_mod, load_config, lm, splat) -> dict:
     evals = [eval_step(state, b) for b in batches[:2]]
     torch.cuda.synchronize()
     eval_launches = splat.splat_heatmap.launches
+    # the train and eval-loss steps compose the KFPN fusion (autograd,
+    # autocast): no launch of its kernel
+    kfpn_launches = kf.kfpn_fuse.launches
 
     losses = torch.stack([m["loss"] for m in metrics]).cpu()
     aux = torch.stack([m["loss_items"] for m in metrics] + [e["loss_items"] for e in evals]).cpu()
@@ -723,7 +800,7 @@ def train_phase(nn_model, step_mod, state_mod, load_config, lm, splat) -> dict:
         "images_per_s": TRAIN_BATCH * TRAIN_TIMED / (dev_ms / 1e3), "ms_per_step": dev_ms / TRAIN_TIMED,
         "wall_images_per_s": TRAIN_BATCH * TRAIN_TIMED / wall_s, "peak_mem_gb": peak_gb,
         "splat_launches": train_launches, "lm_launches": train_lm, "eval_splat_launches": eval_launches,
-        "loss_first": losses[0].item(), "loss_last": losses[-1].item(),
+        "kfpn_launches": kfpn_launches, "loss_first": losses[0].item(), "loss_last": losses[-1].item(),
         "eval_loss": [e["loss"].item() for e in evals],
         "num_targets": int(metrics[0]["num_targets"].item()),
     }
@@ -744,8 +821,8 @@ def train_phase(nn_model, step_mod, state_mod, load_config, lm, splat) -> dict:
     emit("train", **rec)
     if not (torch.isfinite(losses).all() and torch.isfinite(aux).all() and torch.isfinite(fall).all()):
         raise AssertionError(f"train: non-finite loss or aux {rec}")
-    if train_launches != TRAIN_TIMED or eval_launches != 2 or train_lm != 0:
-        raise AssertionError(f"train: expected one splat launch per step, got {rec}")
+    if train_launches != TRAIN_TIMED or eval_launches != 2 or train_lm != 0 or kfpn_launches != 0:
+        raise AssertionError(f"train: expected one splat launch per step and no LM or KFPN fusion launch, got {rec}")
     if not fall[-1] < fall[0]:
         raise AssertionError(f"train: the loss did not fall over {LOSS_FALL_STEPS} steps on one batch: {rec}")
     profile_calls("train_profile", lambda: step(state, batches[1]), 2, "chip_smoke_out/train_profile.json")
@@ -972,12 +1049,12 @@ def peak_row(calls, bias, n_det: int) -> float:
     return float(np.median(np.concatenate(rows)))
 
 
-def detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree: str, checkpoint: str) -> dict:
+def detect_cli_phase(lm, kf, load_config, cli_detect, cli_evaluate, tree: str, checkpoint: str) -> dict:
     """Detect and evaluate from files through the port's CLIs, in this
     process, on the data phase's tree and the device-mode run's checkpoint:
     detect_cli_device, detect_cli_parity and evaluate (see the module's
-    docstring). Returns the LM launches of the two detect runs on the card
-    and the records."""
+    docstring). Returns the LM launches of the two detect runs on the card,
+    the KFPN fusion launches of the gated device run and the records."""
     from rtm3d_tpu_torch.data.kitti import create_dataset
     from rtm3d_tpu_torch.eval.ap import DIFFICULTY, parse_kitti_line
     from rtm3d_tpu_torch.train.checkpoint import load_torch_weights
@@ -1010,7 +1087,9 @@ def detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree: str, check
     calls = []
     torch.save(car_head(load_torch_weights(checkpoint)[0], K_dev, DEVICE_CAR_DEPTH, row), device_weights)
     out_dir = os.path.join(root, "results_device")
+    kf.kfpn_fuse.launches = 0
     summary, launches, _ = detect(device_argv + ["--out-dir", out_dir], keeper(calls))
+    kfpn_launches = kf.kfpn_fuse.launches
     held = lm_held(lm, calls, n_det)
     batches = len(summary["batch_s"])
     steady = summary["batch_s"][1:]
@@ -1021,16 +1100,16 @@ def detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree: str, check
            "device_s": summary["device_s"], "wall_s": summary["wall_s"],
            "outside_detect_share": 1.0 - summary["device_s"] / summary["wall_s"],
            "batch_ms": [1e3 * t for t in summary["batch_s"]], "wait_ms": [1e3 * t for t in summary["wait_s"]],
-           "first_wait_ms": 1e3 * summary["wait_s"][0], "lm_launches": launches,
+           "first_wait_ms": 1e3 * summary["wait_s"][0], "lm_launches": launches, "kfpn_launches": kfpn_launches,
            "vertex_head": f"car {DEVICE_CAR_DEPTH:g} m ahead on feature row {row:.2f}",
            "pilot_accepted_lanes_car_on_axis_25m": pilot_accepted, "accepted_lanes": [h["accepted_lanes"] for h in held],
            "lm_held": held}
     recs["detect_cli_device"] = rec
     emit("detect_cli_device", **rec)
     if (summary["images"] != DATA_TRAIN or rec["result_files"] != DATA_TRAIN or summary["img_size"] != KITTI_RECT
-            or launches != 2 * batches or len(held) != launches):
+            or launches != 2 * batches or len(held) != launches or kfpn_launches != 2 * batches):
         raise AssertionError(f"detect_cli_device: expected a result file for each of {DATA_TRAIN} frames, "
-                             f"img_size {KITTI_RECT} and 2 LM launches per batch: {rec}")
+                             f"img_size {KITTI_RECT} and 2 LM and 2 KFPN fusion launches per batch: {rec}")
     # every launch on the lanes the CLI made: lanes accepted, the accept
     # decisions and the accepted costs as the lm phases hold them
     if not all(h["finite"] and h["accepted_lanes"] >= 1 and h["accepted_lanes_plain"] >= 1
@@ -1145,7 +1224,8 @@ def detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree: str, check
                              f"or the plain overlap gives another table: {rec}")
     shutil.rmtree(os.path.dirname(os.path.dirname(checkpoint)), ignore_errors=True)  # weights_device
     os.remove(weights)
-    return {"launches": recs["detect_cli_device"]["lm_launches"] + parity_launches, "records": recs,
+    return {"launches": recs["detect_cli_device"]["lm_launches"] + parity_launches,
+            "kfpn_launches": recs["detect_cli_device"]["kfpn_launches"], "records": recs,
             "max_abs_err": max(h["max_abs_cost_diff_accepted"] for h in held), "device_weights": device_weights}
 
 
@@ -1644,7 +1724,7 @@ def int8_logits_phase(int8, quant, nn_model, load_config, normalize_images, smi:
     return rec
 
 
-def int8_cli_phase(lm, int8, quant, nn_model, load_config, cli_detect, cli_evaluate, tree: str, weights: str,
+def int8_cli_phase(lm, int8, kf, quant, nn_model, load_config, cli_detect, cli_evaluate, tree: str, weights: str,
                    served_convs: int, smi: str) -> dict:
     """int8 serving through the port's CLIs on the data phase's tree,
     configs/rtm3d_dla34_kitti_tpu.yaml as it stands (1280x416, b32, bf16,
@@ -1657,7 +1737,9 @@ def int8_cli_phase(lm, int8, quant, nn_model, load_config, cli_detect, cli_evalu
     call against the bf16 call at the same shape (CUDA events) and
     torch.profiler over two int8 calls (chip_smoke_out/int8_profile.json).
     Every int8 detect call launches quantize and conv_s8 ``served_convs``
-    times."""
+    times, and every forward of the network with autograd off, int8 or
+    float (calibration's fp32 sweeps, the gate's two steps, serving), the
+    KFPN fusion kernel twice."""
     root = os.path.dirname(tree)
     config = os.path.join(CONFIGS, "rtm3d_dla34_kitti_tpu.yaml")
     cfg = load_config(config)
@@ -1665,19 +1747,20 @@ def int8_cli_phase(lm, int8, quant, nn_model, load_config, cli_detect, cli_evalu
     scales_file = os.path.join(root, "int8_scales.json")
     common = ["--model-config", config, "--data-path", tree, "--split", "train", "--batch-size", str(DETECT_BATCH),
               "--checkpoint", weights, "--int8"]
-    recs, launches = {}, {}
+    recs, launches, kfpn = {}, {}, {}
 
     def run(name, extra, route=None):
-        int8.quantize.launches = int8.conv_s8.launches = 0
+        int8.quantize.launches = int8.conv_s8.launches = kf.kfpn_fuse.launches = 0
         out_dir = os.path.join(root, f"results_{name}")
         summary, n_lm, printed = detect_run(lm, cli_detect, common + ["--out-dir", out_dir] + extra, route)
         launches[name] = {"quantize": int8.quantize.launches, "conv_s8": int8.conv_s8.launches, "lm": n_lm}
+        kfpn[name] = kf.kfpn_fuse.launches
         batches = len(summary["batch_s"])
         rec = {"card": smi, "img_size": summary["img_size"], "images": summary["images"], "batches": batches,
                "result_files": len(os.listdir(out_dir)), "call_ms": [1e3 * t for t in summary["batch_s"]],
                "steady_call_ms": 1e3 * float(np.mean(summary["batch_s"][1:])),
                "device_images_per_s": summary["device_images_per_s"], "wall_images_per_s": summary["wall_images_per_s"],
-               "launches": launches[name]}
+               "launches": launches[name], "kfpn_launches": kfpn[name]}
         if summary["images"] != DATA_TRAIN or rec["result_files"] != DATA_TRAIN or summary["img_size"] != KITTI_RECT:
             emit(name, **rec)
             raise AssertionError(f"{name}: expected a result file for each of {DATA_TRAIN} frames at {KITTI_RECT}")
@@ -1691,12 +1774,15 @@ def int8_cli_phase(lm, int8, quant, nn_model, load_config, cli_detect, cli_evalu
                gate={k: float(v) for k, v in zip(("float", "int8", "matched", "recall"), gate.groups())} if gate else None)
     recs["int8_cli_calibrated"] = rec
     emit("int8_cli_calibrated", **rec)
-    # the gate's 2 calibration batches run the int8 step too
+    # the gate's 2 calibration batches run the int8 step too; the network
+    # runs batches + 8 times: the 2 batches through mse calibration's two
+    # fp32 sweeps and the gate's float and int8 steps, then serving
     want = served_convs * (batches + 2)
     if (not rec["calibrated"] or not rec["serving_2d"] or gate is None or not os.path.exists(scales_file)
-            or launches["int8_cli_calibrated"] != {"quantize": want, "conv_s8": want, "lm": 0}):
+            or launches["int8_cli_calibrated"] != {"quantize": want, "conv_s8": want, "lm": 0}
+            or kfpn["int8_cli_calibrated"] != 2 * (batches + 8)):
         raise AssertionError(f"int8_cli_calibrated: no calibration, gate line or scales file, or other than "
-                             f"{served_convs} int8 convs per call and no LM: {rec}")
+                             f"{served_convs} int8 convs and 2 KFPN fusion launches per forward and no LM: {rec}")
 
     rec, dir2, printed, batches = run("int8_cli_loaded", ["--calib-scales", scales_file])
     names = sorted(os.listdir(dir1))
@@ -1707,7 +1793,8 @@ def int8_cli_phase(lm, int8, quant, nn_model, load_config, cli_detect, cli_evalu
     emit("int8_cli_loaded", **rec)
     want = served_convs * batches
     if (not rec["files_byte_identical"] or not rec["gate_skipped_notice"]
-            or launches["int8_cli_loaded"] != {"quantize": want, "conv_s8": want, "lm": 0}):
+            or launches["int8_cli_loaded"] != {"quantize": want, "conv_s8": want, "lm": 0}
+            or kfpn["int8_cli_loaded"] != 2 * batches):
         raise AssertionError(f"int8_cli_loaded: the scales from disk serve other files, or the launches are off: {rec}")
 
     calls = []
@@ -1719,10 +1806,11 @@ def int8_cli_phase(lm, int8, quant, nn_model, load_config, cli_detect, cli_evalu
     emit("int8_cli_3d", **rec)
     want = served_convs * batches
     if (launches["int8_cli_3d"] != {"quantize": want, "conv_s8": want, "lm": 2 * batches} or len(held) != 2 * batches
+            or kfpn["int8_cli_3d"] != 2 * batches
             or not all(hh["finite"] and hh["accepted_lanes"] >= 1 and hh["accepted_lanes_plain"] >= 1
                        and hh["accept_agreement"] >= 0.999 and hh["cost_within_1e-3"] >= 0.999 for hh in held)):
-        raise AssertionError(f"int8_cli_3d: other than 2 LM launches a batch, a launch accepts no lane, or the LM "
-                             f"kernel disagrees with its plain version on the int8 lanes: {rec}")
+        raise AssertionError(f"int8_cli_3d: other than 2 LM and 2 KFPN fusion launches a batch, a launch accepts "
+                             f"no lane, or the LM kernel disagrees with its plain version on the int8 lanes: {rec}")
 
     # evaluate --int8 --int8-guard 0.5 over the test split: the guard's
     # verdict is recorded (exit code 3 carries the three tables)
@@ -1782,7 +1870,7 @@ def int8_cli_phase(lm, int8, quant, nn_model, load_config, cli_detect, cli_evalu
     del steps, model, frames
     torch.cuda.empty_cache()
     # the weights stay for the ddp_cli phase, which main removes after it
-    return {"records": recs, "launches": launches}
+    return {"records": recs, "launches": launches, "kfpn_launches": kfpn}
 
 
 def fused_warp_vs_cv2(tree: str, cfg) -> dict:
@@ -3342,6 +3430,7 @@ def main() -> int:
     from rtm3d_tpu_torch.nn import model as nn_model
     from rtm3d_tpu_torch.nn import quant
     from rtm3d_tpu_torch.ops import int8_conv as int8
+    from rtm3d_tpu_torch.ops import kfpn_fuse as kf
     from rtm3d_tpu_torch.ops import lm_solver as lm
     from rtm3d_tpu_torch.ops import splat
     from rtm3d_tpu_torch.train import state as state_mod
@@ -3400,7 +3489,7 @@ def main() -> int:
     phase_done("lm")
     logits_phase(cfg, nn_model)
     phase_done("logits")
-    served = serve_phase(cfg, nn_model, lm, splat, Detector)
+    served = serve_phase(cfg, nn_model, lm, splat, kf, Detector)
     phase_done("serve_and_profile")
 
     # the splat at the training path's shape: the inputs build_targets makes
@@ -3410,9 +3499,11 @@ def main() -> int:
     splat_main = splat_phase(splat, heatmap_inputs(labels), feat_hw, 3, "train_shape")
     splat_edge = splat_phase(splat, splat_edge_inputs(4, TRAIN_OBJS, feat_hw), feat_hw, 3, "edge")
     phase_done("splat")
+    fused = kfpn_fuse_phase(kf)
+    phase_done("kfpn_fuse")
     train_fp32_phase(cfg, nn_model, step_mod, state_mod)
     phase_done("train_fp32")
-    trained = train_phase(nn_model, step_mod, state_mod, load_config, lm, splat)
+    trained = train_phase(nn_model, step_mod, state_mod, load_config, lm, splat, kf)
     phase_done("train_and_profile")
     remat = remat_phase(cfg, nn_model, step_mod, state_mod, load_config, splat, trained)
     phase_done("remat")
@@ -3422,7 +3513,7 @@ def main() -> int:
     phase_done("latency")
     from_files, data_splats, tree, checkpoint = data_phase(splat, load_config, generate_kitti, cli_train)
     phase_done("data")
-    from_files_detect = detect_cli_phase(lm, load_config, cli_detect, cli_evaluate, tree, checkpoint)
+    from_files_detect = detect_cli_phase(lm, kf, load_config, cli_detect, cli_evaluate, tree, checkpoint)
     phase_done("detect_cli")
     resnet = resnet18_phase(lm, splat, load_config, cli_train, cli_detect, cli_export, cli_stats, tree, smi)
     phase_done("resnet18")
@@ -3432,7 +3523,7 @@ def main() -> int:
     int8_logits_phase(int8, quant, nn_model, load_config, step_mod.normalize_images, smi)
     phase_done("int8_logits")
     served_convs = sum(c["served"] for c in convs)
-    int8_cli = int8_cli_phase(lm, int8, quant, nn_model, load_config, cli_detect, cli_evaluate, tree,
+    int8_cli = int8_cli_phase(lm, int8, kf, quant, nn_model, load_config, cli_detect, cli_evaluate, tree,
                               from_files_detect["device_weights"], served_convs, smi)
     phase_done("int8_cli")
     host_variants = host_variants_phase(splat, load_config, cli_train, tree, from_files["train_cli_host"])
@@ -3576,6 +3667,29 @@ def main() -> int:
         # im2col (F.unfold) + torch._int_mm on the same convs
         "library_ms": fwd["library_ms"],
         "cudnn_bf16_ms": fwd["cudnn_bf16_ms"],
+    }, {
+        "name": "kfpn_fuse",
+        "route": "cuda",
+        "source": "rtm3d_tpu_torch/csrc/kfpn_fuse.cu",
+        "replaces": KFPN_FUSE_REPLACES,
+        # 2 per forward of the port's eager network on the card with
+        # autograd off, counted from 0 on each path: the serve phase's
+        # calls, the detect CLI's gated device run, the int8 CLI runs
+        # (calibration and gate forwards included); none in the train
+        # phase's steps and eval-loss steps
+        "launches": (served["kfpn_launches"] + from_files_detect["kfpn_launches"]
+                     + sum(int8_cli["kfpn_launches"].values()) + trained["kfpn_launches"]),
+        "launches_by_path": {"serve": served["kfpn_launches"], "detect_cli_device": from_files_detect["kfpn_launches"],
+                             **int8_cli["kfpn_launches"], "train": trained["kfpn_launches"]},
+        # the kfpn_fuse phase, at b32 and b1 against the float64 fusion;
+        # the times at b32
+        "max_abs_err": max(r["max_abs_err"] for r in fused.values()),
+        "ms": fused[32]["kernel_ms"],
+        "plain_ms": fused[32]["plain_ms"],
+        "bound_ms": fused[32]["bound_ms"],
+        "bound_by": "bytes",
+        # PyTorch's composition of the same fusion (the KFPN's composed loop)
+        "library_ms": fused[32]["composed_ms"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

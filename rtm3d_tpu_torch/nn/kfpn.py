@@ -14,6 +14,25 @@ On a band of the frame's rows (the spatial mesh axis, ``spatial`` set by
 frame's H x W: ``spatial.softmax_hw`` takes each channel's max and its sum
 of exponentials over every band. A band-local softmax would run, give
 finite numbers, and be wrong.
+
+The fusion takes one of two paths, chosen from what the forward observes:
+- fused: ``ops/kfpn_fuse.py::kfpn_fuse``, the hand-written kernel's two
+  launches (every map's per-channel statistics, then the weighted sum,
+  accumulated in float32 and rounded once), where the maps are CUDA
+  tensors, autograd is not recording (the detect step runs under
+  ``inference_mode``), autocast is off, no grid is attached and no
+  ``torch.compile`` or ``torch.export`` trace is running. That is the
+  detect step, the ``Detector``, int8 serving and its calibration. Maps
+  the kernel does not take (NCHW, C not a multiple of 8, mixed dtypes)
+  raise there: there is no second inference path on the card;
+- composed, the loop below, everywhere else: training and the eval-loss
+  step under autocast (the softmax in float32, and autograd keeps each
+  weight for the backward), spatial bands (``softmax_hw`` across ranks),
+  export, and the CPU.
+The two are kept apart, not one adapted to both: training needs the
+backward and autocast's float32 softmax, a different algorithm, so they
+share no code; the CPU tests hold the plain version of the kernel
+(``kfpn_fuse_reference``) to the composed loop.
 """
 
 from __future__ import annotations
@@ -26,7 +45,9 @@ from torch import nn
 
 from rtm3d_tpu_torch.nn.layers import Conv, UpSample
 from rtm3d_tpu_torch.nn.spec import ShapeSpec
+from rtm3d_tpu_torch.ops.kfpn_fuse import kfpn_fuse
 from rtm3d_tpu_torch.parallel.spatial import softmax_hw
+from rtm3d_tpu_torch.utils.profiling import count
 
 
 class KeypointFPNFusion(nn.Module):
@@ -73,9 +94,13 @@ class KeypointFPNFusion(nn.Module):
         x[0] = getattr(self, f"kfpn_head{lv[0]}")(x[0])
 
         # softmax-attention fusion at the lowest stride (kfpn:62-68)
+        ups = (getattr(self, f"fusion_up{lv[i]}")(x[i]) for i in range(n - 1, 0, -1))
+        if self.spatial is None and fusion_kernel_may_run(x[0]):
+            z = kfpn_fuse(x[0], list(ups))
+            count("kfpn_fused")
+            return z
         z = x[0]
-        for i in range(n - 1, 0, -1):
-            out_i = getattr(self, f"fusion_up{lv[i]}")(x[i])
+        for out_i in ups:
             b, c, h, w = out_i.shape
             # softmax over H*W per channel, as a last-dim softmax of a
             # (B, C, H*W) copy: PyTorch's softmax over the middle dim of the
@@ -88,3 +113,11 @@ class KeypointFPNFusion(nn.Module):
                 att = softmax_hw(flat, self.spatial).reshape(b, c, h, w)
             z = z + out_i * att
         return z
+
+
+def fusion_kernel_may_run(x0: torch.Tensor) -> bool:
+    """The fused path's conditions on how the forward runs: a CUDA map, no
+    autograd recording, no autocast, no ``torch.compile`` or
+    ``torch.export`` trace."""
+    return (x0.device.type == "cuda" and not torch.is_grad_enabled()
+            and not torch.is_autocast_enabled(x0.device.type) and not torch.compiler.is_compiling())

@@ -1,7 +1,7 @@
-"""Tests of the port that need the card: the LM and splat kernels against
-their plain versions, and the detect and train steps on the GPU against the
-CPU; plus, on the CPU, that the entry points refuse to run without a GPU
-unless asked for the CPU.
+"""Tests of the port that need the card: the LM, splat and KFPN fusion
+kernels against their plain versions, and the detect and train steps on the
+GPU against the CPU; plus, on the CPU, that the entry points refuse to run
+without a GPU unless asked for the CPU.
 
 This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed. On a machine with a CUDA device, from the repository
@@ -15,14 +15,20 @@ Without a device every ``cuda``-marked test skips with its reason.
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
+from rtm3d_tpu_torch.api import Detector
 from rtm3d_tpu_torch.config import default_config
 from rtm3d_tpu_torch.decode.solve3d import COR, solve_bbox3d
+from rtm3d_tpu_torch.nn.kfpn import KeypointFPNFusion
 from rtm3d_tpu_torch.nn.model import create_model
+from rtm3d_tpu_torch.nn.spec import ShapeSpec
+from rtm3d_tpu_torch.ops.kfpn_fuse import kfpn_fuse, kfpn_fuse_reference
 from rtm3d_tpu_torch.ops.lm_solver import lm_solve, lm_solve_reference
 from rtm3d_tpu_torch.ops.splat import splat_heatmap, splat_heatmap_reference
 from rtm3d_tpu_torch.train.state import TrainState
 from rtm3d_tpu_torch.train.step import make_detect_step, make_eval_loss_step, make_train_step
+from rtm3d_tpu_torch.utils import profiling
 
 K_KITTI = np.array([[721.5, 0, 609.6], [0, 721.5, 172.9], [0, 0, 1.0]], np.float32)
 
@@ -252,14 +258,8 @@ def test_splat_kernel_refuses_what_it_cannot_take(cuda):
         splat_heatmap(*args, (16, 16), 9)  # more classes than the kernel holds
 
 
-@pytest.mark.cuda
-def test_train_step_gpu_matches_cpu(cuda):
-    cfg = default_config()
-    cfg.INPUT_SIZE = (96, 64)
-    cfg.DATASET.MAX_OBJS = 8
-    model = create_model(cfg, torch.Generator().manual_seed(0))
-    rng = np.random.RandomState(2)
-    B, N = 2, 8
+def train_batch(rng, B=2, N=8):
+    """A batch of uint8 96x64 frames and N label slots an image."""
     x1, y1 = rng.rand(B, N) * 70, rng.rand(B, N) * 44
     labels = {
         "cls": rng.randint(0, 3, (B, N)).astype(np.int32),
@@ -270,7 +270,16 @@ def test_train_step_gpu_matches_cpu(cuda):
         "K": np.tile(np.array([60.0, 0, 48, 0, 60.0, 32, 0, 0, 1], np.float32), (B, N, 1)),
         "mask": rng.rand(B, N) > 0.2, "noise_mask": rng.rand(B, N) > 0.9,
     }
-    batch = {"image": (rng.rand(B, 64, 96, 3) * 255).astype(np.uint8), "labels": labels}
+    return {"image": (rng.rand(B, 64, 96, 3) * 255).astype(np.uint8), "labels": labels}
+
+
+@pytest.mark.cuda
+def test_train_step_gpu_matches_cpu(cuda):
+    cfg = default_config()
+    cfg.INPUT_SIZE = (96, 64)
+    cfg.DATASET.MAX_OBJS = 8
+    model = create_model(cfg, torch.Generator().manual_seed(0))
+    batch = train_batch(np.random.RandomState(2))
     out = {}
     for dev in ("cuda", "cpu"):
         state = TrainState.create(model, cfg, device=dev, with_ema=True)
@@ -288,6 +297,161 @@ def test_train_step_gpu_matches_cpu(cuda):
     # float32 noise: this network's gradient at random init is noisy at the
     # 1% level (chip_smoke.py's train_fp32 phase)
     assert ((gg - gc).norm() / gc.norm()).item() <= 5e-2
+
+
+def fusion_maps(batch, hw=(104, 320)):
+    """x0 and three upsampled maps as the detect path holds them at 1280x416
+    (256 channels at stride 4, channels_last, bf16); the upsampled maps at
+    three times x0's spread, so that the softmax weights are peaked."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    maps = [torch.randn((batch, *hw, 256), generator=g, device="cuda").mul_(3.0 if i else 1.0)
+            .bfloat16().permute(0, 3, 1, 2) for i in range(4)]
+    return maps[0], maps[1:]
+
+
+def composed_fusion(x0, ups):
+    """The KFPN's composed loop (nn/kfpn.py), in the maps' dtype."""
+    z = x0
+    for u in ups:
+        b, c, h, w = u.shape
+        z = z + u * torch.softmax(u.reshape(b, c, h * w), -1).reshape(b, c, h, w)
+    return z
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [32, 1])
+def test_kfpn_fuse_kernel_at_the_detect_paths_maps(cuda, batch):
+    """At b32 and b1 x 256 x 104 x 320 in bf16: the kernel's error against
+    the float64 fusion no larger than PyTorch's bf16 composition's, in its
+    largest and its mean; z channels_last; two runs bit-equal; two
+    launches."""
+    x0, ups = fusion_maps(batch)
+    before = kfpn_fuse.launches
+    z = kfpn_fuse(x0, ups)
+    torch.cuda.synchronize()
+    assert kfpn_fuse.launches == before + 2
+    assert z.shape == x0.shape and z.dtype == torch.bfloat16
+    assert z.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(z, kfpn_fuse(x0, ups))
+    exact = kfpn_fuse_reference(x0.double(), [u.double() for u in ups])
+    err = (z.double() - exact).abs()
+    plain = (composed_fusion(x0, ups).double() - exact).abs()
+    assert err.max() <= plain.max() and err.mean() <= plain.mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kfpn_fuse_kernel_in_other_dtypes_and_shapes(cuda, dtype):
+    """fp32 and bf16 maps (the detect step's two compute dtypes); 1 and 4
+    upsampled maps, a channel count other than 256 and a map whose pixels
+    split unevenly over the blocks."""
+    for n_ups, C, hw in ((1, 24, (7, 9)), (4, 64, (13, 37))):
+        g = torch.Generator(device="cuda").manual_seed(C)
+        maps = [torch.randn((2, *hw, C), generator=g, device="cuda").mul_(2.0).to(dtype).permute(0, 3, 1, 2)
+                for _ in range(n_ups + 1)]
+        z = kfpn_fuse(maps[0], maps[1:])
+        exact = kfpn_fuse_reference(maps[0].double(), [u.double() for u in maps[1:]])
+        tol = 1e-5 if dtype == torch.float32 else 2 ** -8  # bf16: half an ulp, rounded once
+        assert ((z.double() - exact).abs() <= tol * (1 + exact.abs())).all()
+
+
+@pytest.mark.cuda
+def test_kfpn_fuse_kernel_on_maps_of_a_trained_networks_magnitude(cuda):
+    """fp32 upsampled maps whose values reach 1e4, as a trained network's
+    do: each weight's exponent takes the difference from the channel's max
+    first, so the error against the float64 fusion stays at float32's
+    (PyTorch's composition: 9e-8 of the largest value on the H100; a shift
+    folded into one float, log2e * max + log2 sum, gave 6e-4)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    maps = [torch.randn((2, 48, 64, 256), generator=g, device="cuda").mul_(3000.0 if i else 1.0).permute(0, 3, 1, 2)
+            for i in range(4)]
+    z = kfpn_fuse(maps[0], maps[1:])
+    exact = kfpn_fuse_reference(maps[0].double(), [u.double() for u in maps[1:]])
+    assert (z.double() - exact).abs().max() <= 1e-6 * exact.abs().max()
+
+
+@pytest.mark.cuda
+def test_kfpn_fuse_kernel_refuses_what_it_cannot_take(cuda):
+    x0, ups = fusion_maps(1, hw=(8, 8))
+    with pytest.raises(ValueError, match="channels_last"):
+        kfpn_fuse(x0, [ups[0].contiguous(), *ups[1:]])
+    with pytest.raises(ValueError, match="one device"):
+        kfpn_fuse(x0, [ups[0].cpu(), *ups[1:]])
+    with pytest.raises(ValueError, match="one dtype"):
+        kfpn_fuse(x0.float(), ups)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault,match", [("nchw", "channels_last"), ("channels", "multiple of 8")])
+def test_kfpn_forward_raises_on_maps_the_kernel_does_not_take(cuda, fault, match):
+    """A CUDA forward with autograd and autocast off takes the kernel and
+    raises on NCHW maps or a channel count not a multiple of 8: there is
+    no composed fallback on the card."""
+    names = ["l0", "l1", "l2"]
+    spec = {n: ShapeSpec(channels=c, stride=4 * 2 ** i) for i, (n, c) in enumerate(zip(names, [16, 24, 32]))}
+    module = KeypointFPNFusion(names, spec, out_channels=12 if fault == "channels" else 16).cuda().eval()
+    feats = [torch.randn(2, c, 3 * 2 ** (2 - i), 5 * 2 ** (2 - i), device="cuda") for i, c in enumerate([16, 24, 32])]
+    if fault == "channels":
+        module = module.to(memory_format=torch.channels_last)
+        feats = [f.contiguous(memory_format=torch.channels_last) for f in feats]
+    before = kfpn_fuse.launches
+    with torch.inference_mode(), pytest.raises(ValueError, match=match):
+        module(feats)
+    assert kfpn_fuse.launches == before
+
+
+def small_cfg(dtype: str):
+    cfg = default_config()
+    cfg.MODEL.BACKBONE = "RESNET-18"
+    cfg.MODEL.KFNs = ["layer1", "layer2", "layer3", "layer4"]
+    cfg.INPUT_SIZE = (96, 64)
+    cfg.DATASET.MAX_OBJS = 8
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    return cfg
+
+
+@pytest.mark.cuda
+def test_detect_call_fuses_with_no_host_sync_of_its_own(cuda):
+    """Traced ``Detector`` calls of uint8 frames in bf16 take the fused
+    path (two launches and one ``kfpn_fused`` a call) and wait for the
+    device 15 times a call, as the composed path does
+    (tests/test_torch_spans.py): the counter, and the trace's stream
+    synchronisations (two calls' less one call's, so that what the
+    profiler itself adds cancels)."""
+    cfg = small_cfg("bfloat16")
+    detector = Detector(cfg, create_model(cfg, torch.Generator().manual_seed(0)), device="cuda")
+    rng = np.random.RandomState(4)
+    frames = rng.randint(0, 256, (2, 64, 96, 3)).astype(np.uint8)
+    K = np.tile(np.array([[60.0, 0, 48], [0, 60, 32], [0, 0, 1]], np.float32), (2, 1, 1))
+    detector(frames, K)  # builds the kernels
+
+    def syncs(calls):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                detector(frames, K)
+        return sum(e.count for e in prof.key_averages() if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
+
+    launches, counted = kfpn_fuse.launches, dict(profiling.counters)
+    per_call = syncs(2) - syncs(1)
+    moved = {k: v - counted.get(k, 0) for k, v in profiling.counters.items() if v != counted.get(k, 0)}
+    assert kfpn_fuse.launches == launches + 3 * 2
+    assert moved == {"host_syncs": 3 * 15, "kfpn_fused": 3}
+    assert per_call == 15
+
+
+@pytest.mark.cuda
+def test_train_and_eval_loss_steps_compose_the_fusion(cuda):
+    """Under bf16 autocast with autograd the KFPN composes: no launch of
+    the fusion kernel in a train step or an eval-loss step."""
+    cfg = small_cfg("bfloat16")
+    state = TrainState.create(create_model(cfg, torch.Generator().manual_seed(0)), cfg, device="cuda")
+    batch = train_batch(np.random.RandomState(6))
+    before = kfpn_fuse.launches
+    state, m = make_train_step(cfg, device="cuda")(state, batch)
+    ev = make_eval_loss_step(cfg, device="cuda")(state, batch)
+    torch.cuda.synchronize()
+    assert kfpn_fuse.launches == before
+    assert torch.isfinite(m["loss_items"]).all() and torch.isfinite(ev["loss_items"]).all()
 
 
 def test_train_entry_points_raise_without_gpu(monkeypatch):
