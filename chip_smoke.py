@@ -42,6 +42,17 @@ phases of one JSON line each; any failure exits non-zero:
            the plain version (kfpn_fuse_reference) and of the composition,
            each pass's device ms (torch.profiler), the bytes and the bound
            at 3.35 TB/s;
+  dcn      the DCN kernel (csrc/dcn.cu) at ResNet-101-DCN's layer shapes at
+           1280x416 b32 bf16 (256 x 26 x 80 and 512 x 13 x 40, channels_last),
+           at the init's offsets (0.1 px) and at 2 px RMS: every output
+           within a bf16 ulp of the plain version (dcn_reference), give or
+           take a tap rounded the other way (2e-3 of the largest output),
+           the mean gap under 1e-5 of the largest, two runs bit-equal, one
+           launch a call; CUDA-event ms of the kernel and of the plain
+           version, the operations and the bound at 989 TFLOP/s; then one
+           b32 bf16 ResNet-101-DCN detect call through Detector at
+           1280x416: 26 kernel launches and 2 KFPN fusion launches, finite
+           outputs, its ms and peak memory;
   train_fp32  DLA-34 384x128 batch 2 fp32 (TF32 off), one make_train_step on
            the GPU against the same step on the CPU, same seed-0 weights and
            batch: loss and aux within 1e-4 relative, gradients within
@@ -369,6 +380,9 @@ CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 INT8_REPLACES = "no TPU kernel; XLA's int8 conv at rtm3d_tpu/nn/quant.py:254-262"
 KFPN_FUSE_REPLACES = "no TPU kernel; XLA's fusion of rtm3d_tpu/nn/kfpn.py"
 KFPN_FUSE_MAP = (256, 104, 320)  # the KFPN's maps at stride 4 of the benchmark cells' 1280x416 frames
+DCN_REPLACES = "no TPU kernel; the JAX package has no deformable convolution"
+DCN_LAYERS = ((256, 26, 80, 23), (512, 13, 40, 3))  # ResNet-101-DCN at 1280x416: channels, map, layers a forward
+DCN_BATCH = 32
 MOSAIC_WORKERS = 4
 INT8_CHECK_BATCH = 2  # int8_kernel: the batch of the bit-equality checks (the plain conv runs in float64)
 # int8_logits: DLA-34 1280x416 b2 fp32 (TF32 off), mse scales, the int8 network on the card against the CPU.
@@ -693,6 +707,75 @@ def kfpn_fuse_phase(kf) -> dict:
         del x0, ups, z, again
         torch.cuda.empty_cache()
     return recs
+
+
+def dcn_inputs(batch: int, channels: int, hw, rms: float, seed: int = 0):
+    """x, the offset conv's raw output and a xavier-bounded 3x3 weight as
+    the detect path holds them (channels_last, bf16): offsets normal at
+    ``rms`` px, mask logits standard normal."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((batch, *hw, channels), generator=g, device="cuda")
+    om = torch.randn((batch, *hw, 27), generator=g, device="cuda")
+    om[..., :18] *= rms
+    w = (torch.rand((channels, 3, 3, channels), generator=g, device="cuda") * 2 - 1) * (6.0 / (18 * channels)) ** 0.5
+    return [t.bfloat16().permute(0, 3, 1, 2) for t in (x, om, w)]
+
+
+def dcn_phase(dcn_ops, nn_model, Detector, cfg_base) -> dict:
+    """The DCN kernel against its plain version at b32, times and the
+    bound; then the b32 ResNet-101-DCN network once (module docstring)."""
+    recs = {}
+    for channels, fh, fw, layers in DCN_LAYERS:
+        for rms in (0.1, 2.0):
+            x, om, w = dcn_inputs(DCN_BATCH, channels, (fh, fw), rms)
+            before = dcn_ops.modulated_deform_conv.launches
+            y = dcn_ops.modulated_deform_conv(x, om, w)
+            torch.cuda.synchronize()
+            launches = dcn_ops.modulated_deform_conv.launches - before
+            p = dcn_ops.dcn_reference(x, om, w).double()
+            gap = (y.double() - p).abs()
+            top = p.abs().max().item()
+            flops = dcn_ops.dcn_flops(DCN_BATCH, channels, channels, (fh, fw))
+            rec = {"shape": [DCN_BATCH, channels, fh, fw], "offsets_rms_px": rms, "dtype": "bfloat16",
+                   "launches_per_call": launches, "max_gap": gap.max().item(), "mean_gap": gap.mean().item(),
+                   "within_an_ulp": bool((gap <= 2 ** -7 * p.abs() + 2e-3 * top).all()), "largest_output": top,
+                   "bit_equal": torch.equal(y, dcn_ops.modulated_deform_conv(x, om, w)),
+                   "kernel_ms": cuda_time_ms(lambda: dcn_ops.modulated_deform_conv(x, om, w), 20, 3),
+                   "flops": flops, "bound_ms": flops / PEAK_BF16_FLOPS * 1e3, "bound_by": "operations",
+                   "layers_a_forward": layers}
+            if rms == 0.1:
+                rec["plain_ms"] = cuda_time_ms(lambda: dcn_ops.dcn_reference(x, om, w), 3, 1)
+            rec["roofline_pct"] = 100 * rec["bound_ms"] / rec["kernel_ms"]
+            emit(f"dcn_{channels}_rms{rms}", **rec)
+            if (launches != 1 or not rec["within_an_ulp"] or not rec["bit_equal"]
+                    or not rec["mean_gap"] <= 1e-5 * top):
+                raise AssertionError(f"dcn kernel: {rec}")
+            recs[(channels, rms)] = rec
+            del x, om, w, y, p, gap
+            torch.cuda.empty_cache()
+    cfg = cfg_base.clone()
+    cfg.MODEL.BACKBONE, cfg.MODEL.KFNs = "RESNET-101-DCN", ["layer1", "layer2", "layer3", "layer4"]
+    cfg.INPUT_SIZE, cfg.TPU.COMPUTE_DTYPE = (1280, 416), "bfloat16"
+    det = Detector(cfg, nn_model.create_model(cfg, torch.Generator().manual_seed(0)), device="cuda")
+    frames = torch.randint(0, 256, (DCN_BATCH, 416, 1280, 3), dtype=torch.uint8, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(3))
+    K = torch.from_numpy(np.tile(K_KITTI, (DCN_BATCH, 1, 1))).cuda()
+    det(frames, K)  # warm-up: cuDNN plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dcn_ops.modulated_deform_conv.launches
+    ms = cuda_time_ms(lambda: det(frames, K), 1, 0)
+    out = det(frames, K)
+    net = {"batch": DCN_BATCH, "input": "1280x416", "call_ms": ms,
+           "dcn_launches_per_call": (dcn_ops.modulated_deform_conv.launches - before) // 2,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "finite": all(np.isfinite(v).all() for v in out.values() if v.dtype.kind == "f")}
+    emit("dcn_network", **net)
+    if net["dcn_launches_per_call"] != 26 or not net["finite"]:
+        raise AssertionError(f"dcn network: {net}")
+    del det, frames
+    torch.cuda.empty_cache()
+    return {"layers": recs, "network": net}
 
 
 def train_fp32_phase(cfg_base, nn_model, step_mod, state_mod) -> None:
@@ -3429,6 +3512,7 @@ def main() -> int:
     from rtm3d_tpu_torch.data.targets import heatmap_inputs
     from rtm3d_tpu_torch.nn import model as nn_model
     from rtm3d_tpu_torch.nn import quant
+    from rtm3d_tpu_torch.ops import dcn as dcn_ops
     from rtm3d_tpu_torch.ops import int8_conv as int8
     from rtm3d_tpu_torch.ops import kfpn_fuse as kf
     from rtm3d_tpu_torch.ops import lm_solver as lm
@@ -3501,6 +3585,8 @@ def main() -> int:
     phase_done("splat")
     fused = kfpn_fuse_phase(kf)
     phase_done("kfpn_fuse")
+    dcn_rec = dcn_phase(dcn_ops, nn_model, Detector, cfg)
+    phase_done("dcn")
     train_fp32_phase(cfg, nn_model, step_mod, state_mod)
     phase_done("train_fp32")
     trained = train_phase(nn_model, step_mod, state_mod, load_config, lm, splat, kf)
@@ -3690,6 +3776,24 @@ def main() -> int:
         "bound_by": "bytes",
         # PyTorch's composition of the same fusion (the KFPN's composed loop)
         "library_ms": fused[32]["composed_ms"],
+    }, {
+        "name": "dcn",
+        "route": "cuda",
+        "source": "rtm3d_tpu_torch/csrc/dcn.cu",
+        "replaces": DCN_REPLACES,
+        # 26 per ResNet-101-DCN forward with autograd off on the card: the
+        # dcn phase's two b32 detect calls
+        "launches": 2 * dcn_rec["network"]["dcn_launches_per_call"],
+        "launches_by_path": {"dcn_network": 2 * dcn_rec["network"]["dcn_launches_per_call"]},
+        # against the plain version in bf16 at both layer shapes and offset
+        # scales; the times summed over one b32 1280x416 forward's 26 layers
+        # at the init's offsets
+        "max_abs_err": max(r["max_gap"] for r in dcn_rec["layers"].values()),
+        "ms": sum(dcn_rec["layers"][(c, 0.1)]["kernel_ms"] * n for c, _, _, n in DCN_LAYERS),
+        "plain_ms": sum(dcn_rec["layers"][(c, 0.1)]["plain_ms"] * n for c, _, _, n in DCN_LAYERS),
+        "bound_ms": sum(dcn_rec["layers"][(c, 0.1)]["bound_ms"] * n for c, _, _, n in DCN_LAYERS),
+        "bound_by": "operations",
+        "library_ms": None,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

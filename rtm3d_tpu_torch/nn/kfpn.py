@@ -43,7 +43,7 @@ from typing import Mapping, Sequence
 import torch
 from torch import nn
 
-from rtm3d_tpu_torch.nn.layers import Conv, UpSample
+from rtm3d_tpu_torch.nn.layers import Conv, UpSample, kernel_may_run
 from rtm3d_tpu_torch.nn.spec import ShapeSpec
 from rtm3d_tpu_torch.ops.kfpn_fuse import kfpn_fuse
 from rtm3d_tpu_torch.parallel.spatial import softmax_hw
@@ -95,7 +95,7 @@ class KeypointFPNFusion(nn.Module):
 
         # softmax-attention fusion at the lowest stride (kfpn:62-68)
         ups = (getattr(self, f"fusion_up{lv[i]}")(x[i]) for i in range(n - 1, 0, -1))
-        if self.spatial is None and fusion_kernel_may_run(x[0]):
+        if self.spatial is None and kernel_may_run(x[0]):
             z = kfpn_fuse(x[0], list(ups))
             count("kfpn_fused")
             return z
@@ -113,11 +113,3 @@ class KeypointFPNFusion(nn.Module):
                 att = softmax_hw(flat, self.spatial).reshape(b, c, h, w)
             z = z + out_i * att
         return z
-
-
-def fusion_kernel_may_run(x0: torch.Tensor) -> bool:
-    """The fused path's conditions on how the forward runs: a CUDA map, no
-    autograd recording, no autocast, no ``torch.compile`` or
-    ``torch.export`` trace."""
-    return (x0.device.type == "cuda" and not torch.is_grad_enabled()
-            and not torch.is_autocast_enabled(x0.device.type) and not torch.compiler.is_compiling())

@@ -88,6 +88,15 @@ BN_EPS = 1e-4
 BN_MOMENTUM = 0.03  # torch convention; flax momentum 0.97
 
 
+def kernel_may_run(x: torch.Tensor) -> bool:
+    """The conditions on how the forward runs under which a layer takes its
+    hand-written inference kernel (the KFPN fusion, the deformable conv): a
+    CUDA input, no autograd recording, no autocast, no ``torch.compile`` or
+    ``torch.export`` trace."""
+    return (x.device.type == "cuda" and not torch.is_grad_enabled()
+            and not torch.is_autocast_enabled(x.device.type) and not torch.compiler.is_compiling())
+
+
 def autocast_input(x: torch.Tensor) -> torch.Tensor:
     """``x`` cast as autocast casts a convolution's input (to its dtype,
     when autocast is on for ``x``'s device and ``x`` is float32), so that a

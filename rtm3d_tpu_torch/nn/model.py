@@ -3,7 +3,8 @@
 Port of ``rtm3d_tpu/nn/model.py:26-94``; reference semantics:
 models/model.py:9-27 and models/model_factory.py:23-37. The backbone is
 DLA-34 (``nn/dla.py``) or a PoseResNet of the depth the name ends in
-(``RESNET-18`` ... ``RESNET-152``, ``nn/resnet.py``). The forward takes
+(``RESNET-18`` ... ``RESNET-152``, ``nn/resnet.py``), or FCOS3D's
+deformable ``RESNET-101-DCN`` (``nn/resnet.py``, ``nn/dcn.py``). The forward takes
 NCHW (or channels_last) images and returns the 4 logit maps in NCHW:
 (main_kf [B,C,H/4,W/4], offset_fr_main [.,16,.,.], main_offset [.,2,.,.],
 vertex_offset [.,2,.,.]); decode is separate (``decode/peaks.py``).
@@ -39,7 +40,7 @@ from rtm3d_tpu_torch.nn.dla import DLABase
 from rtm3d_tpu_torch.nn.header import RTM3DHeader
 from rtm3d_tpu_torch.nn.kfpn import KeypointFPNFusion
 from rtm3d_tpu_torch.nn.layers import init_weights, remat_segment
-from rtm3d_tpu_torch.nn.resnet import PoseResNet, built_layers
+from rtm3d_tpu_torch.nn.resnet import PoseResNet, built_layers, parse_resnet_name
 from rtm3d_tpu_torch.utils.profiling import span
 
 
@@ -57,7 +58,8 @@ class RTM3D(nn.Module):
         if "DLA-34" in name:
             self.backbone = DLABase(kfns=tuple(kfns))
         elif "RESNET" in name:
-            self.backbone = PoseResNet(depth=int(name.split("-")[-1]), kfns=tuple(kfns))
+            depth, dcn = parse_resnet_name(name)
+            self.backbone = PoseResNet(depth=depth, kfns=tuple(kfns), dcn=dcn)
         else:
             raise ValueError(f"unsupported backbone: {backbone_name}")
         self.kfpn_fusion = KeypointFPNFusion(

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from rtm3d_tpu_torch.nn.dcn import refuse_dcn
 from rtm3d_tpu_torch.nn.dla import Tree
 from rtm3d_tpu_torch.nn.layers import Conv
 from rtm3d_tpu_torch.ops import int8_conv
@@ -221,7 +222,8 @@ def calibrate_act_scales(model: nn.Module, batches, method: str = "absmax", per_
     calibrate one clip per input channel (a list); under ``mse`` those take
     per-channel absmax. Returns {JAX path: float or list of floats}. The
     model runs as given (its dtype and device); the CLI calibrates the fp32
-    network with TF32 off."""
+    network with TF32 off. A network with deformable convs is refused."""
+    refuse_dcn(model, "int8 calibration")
     batches = list(batches)
     is_pc = _match_fns(per_channel)
     q = {"p99.9": 99.9, "p99.99": 99.99}.get(method)
@@ -344,7 +346,9 @@ class QuantConv(nn.Module):
 
 def quantize_model(model: nn.Module, scales: Dict[str, object]) -> nn.Module:
     """A copy of ``model`` whose convs with a positive scale (a per-channel
-    list with a positive entry) are ``QuantConv``; the rest stay float."""
+    list with a positive entry) are ``QuantConv``; the rest stay float.
+    A network with deformable convs is refused (``nn/dcn.py``)."""
+    refuse_dcn(model, "int8 serving")
     model = copy.deepcopy(model)
     for name, path in conv_paths(model).items():
         s = scales.get(path, 0.0)

@@ -1,4 +1,5 @@
-"""PoseResNet backbones (CenterNet lineage), depths 18/34/50/101/152.
+"""PoseResNet backbones (CenterNet lineage), depths 18/34/50/101/152, and
+the deformable ResNet-101-DCN.
 
 Port of ``rtm3d_tpu/nn/resnet.py``; reference semantics:
 models/nets/resnet.py:116-238. Stem 7x7/s2 conv + BN + ReLU, 3x3/s2
@@ -13,6 +14,17 @@ Parameter names are torchvision's and the reference's
 a torchvision ``.pth`` imports by suffix and the JAX package's variables
 map key for key through ``train/checkpoint.py::state_dict_from_jax``
 (``blockN`` -> ``N``, ``downsample_conv/bn`` -> ``downsample.0/1``).
+
+``RESNET-<depth>-DCN`` (``parse_resnet_name``) is FCOS3D's trunk
+(open-mmlab/mmdetection3d ``fcos3d_r101-caffe-dcn_fpn_head-gn_8xb2-1x_
+nus-mono3d.py``: ``ResNet(depth=101, style='caffe', dcn=dict(type='DCNv2',
+deform_groups=1, fallback_on_stride=False), stage_with_dcn=(False, False,
+True, True))``): Bottlenecks in caffe style, whose stride sits on ``conv1``
+(the 1x1) and not on ``conv2``, and whose ``conv2`` in ``layer3`` and
+``layer4`` is a modulated deformable conv (``nn/dcn.py``), stride 1
+everywhere. Its keys are the plain ResNet's, with ``conv2.conv_offset.*``
+and ``conv2.conv.weight`` in place of ``conv2.weight`` there. The plain
+depths keep their PyTorch-style blocks.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from typing import Sequence
 import torch.nn.functional as F
 from torch import nn
 
+from rtm3d_tpu_torch.nn.dcn import ModulatedDeformConv
 from rtm3d_tpu_torch.nn.layers import BatchNorm, Conv, MaxPool, remat_segment
 from rtm3d_tpu_torch.nn.spec import ShapeSpec
 
@@ -49,13 +62,20 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
+    """``caffe``: the stride on ``conv1`` instead of ``conv2``; ``dcn``:
+    ``conv2`` deformable (stride 1 only, so caffe style)."""
+
     expansion = 4
 
-    def __init__(self, in_planes: int, planes: int, stride: int = 1, has_downsample: bool = False):
+    def __init__(self, in_planes: int, planes: int, stride: int = 1, has_downsample: bool = False,
+                 caffe: bool = False, dcn: bool = False):
         super().__init__()
-        self.conv1 = Conv(in_planes, planes, 1, 1, padding=0)
+        stride1, stride2 = (stride, 1) if caffe else (1, stride)
+        if dcn and stride2 != 1:
+            raise ValueError("a deformable conv2 runs at stride 1: build its block in caffe style")
+        self.conv1 = Conv(in_planes, planes, 1, stride1, padding=0)
         self.bn1 = BatchNorm(planes)
-        self.conv2 = Conv(planes, planes, 3, stride)
+        self.conv2 = ModulatedDeformConv(planes, planes) if dcn else Conv(planes, planes, 3, stride2)
         self.bn2 = BatchNorm(planes)
         self.conv3 = Conv(planes, planes * 4, 1, 1, padding=0)
         self.bn3 = BatchNorm(planes * 4)
@@ -84,12 +104,20 @@ class ResLayer(nn.Sequential):
     """``blocks`` blocks as Sequential indices 0..blocks-1; the first strides
     and, when the shape changes, projects the residual."""
 
-    def __init__(self, block, in_planes: int, planes: int, blocks: int, stride: int = 1):
+    def __init__(self, block, in_planes: int, planes: int, blocks: int, stride: int = 1, **style):
         exp = block.expansion
         need_ds = stride != 1 or in_planes != planes * exp
-        mods = [block(in_planes, planes, stride, need_ds)]
-        mods += [block(planes * exp, planes, 1, False) for _ in range(1, blocks)]
+        mods = [block(in_planes, planes, stride, need_ds, **style)]
+        mods += [block(planes * exp, planes, 1, False, **style) for _ in range(1, blocks)]
         super().__init__(*mods)
+
+
+def parse_resnet_name(name: str) -> tuple:
+    """``(depth, dcn)`` of a backbone name: ``RESNET-18`` -> (18, False),
+    ``RESNET-101-DCN`` -> (101, True); the depth is the last number."""
+    name = name.upper()
+    dcn = name.endswith("-DCN")
+    return int((name[:-len("-DCN")] if dcn else name).split("-")[-1]), dcn
 
 
 def built_layers(kfns: Sequence[str]) -> list:
@@ -106,15 +134,19 @@ def built_layers(kfns: Sequence[str]) -> list:
 
 
 class PoseResNet(nn.Module):
-    """Returns the features of every level named in ``kfns`` (in order)."""
+    """Returns the features of every level named in ``kfns`` (in order).
+    ``dcn``: caffe-style Bottlenecks with deformable ``conv2`` in ``layer3``
+    and ``layer4`` (the module docstring)."""
 
-    def __init__(self, depth: int = 18, kfns: Sequence[str] = _LAYERS):
+    def __init__(self, depth: int = 18, kfns: Sequence[str] = _LAYERS, dcn: bool = False):
         super().__init__()
         if depth not in RESNET_SPEC:
             raise ValueError(f"ResNet depth {depth} is not one of {sorted(RESNET_SPEC)}")
         self.depth = depth
         self.kfns = tuple(kfns)
         block, layers = RESNET_SPEC[depth]
+        if dcn and block is not Bottleneck:
+            raise ValueError(f"ResNet-{depth}-DCN: deformable convs sit in Bottleneck blocks (depth 50 and up)")
         self.conv1 = Conv(3, 64, 7, 2)
         self.bn1 = BatchNorm(64)
         self.maxpool = MaxPool(3, 2, 1)
@@ -122,7 +154,8 @@ class PoseResNet(nn.Module):
         self.layer_names = built_layers(self.kfns)
         for idx, name in enumerate(self.layer_names):
             stride = 1 if idx == 0 else 2
-            self.add_module(name, ResLayer(block, in_planes, _CHANNELS[idx], layers[idx], stride))
+            style = {"caffe": True, "dcn": idx >= 2} if dcn else {}
+            self.add_module(name, ResLayer(block, in_planes, _CHANNELS[idx], layers[idx], stride, **style))
             in_planes = _CHANNELS[idx] * block.expansion
 
     @property

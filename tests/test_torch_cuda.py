@@ -1,5 +1,5 @@
-"""Tests of the port that need the card: the LM, splat and KFPN fusion
-kernels against their plain versions, and the detect and train steps on the
+"""Tests of the port that need the card: the LM, splat, KFPN fusion and
+DCN kernels against their plain versions, and the detect and train steps on the
 GPU against the CPU; plus, on the CPU, that the entry points refuse to run
 without a GPU unless asked for the CPU.
 
@@ -23,6 +23,7 @@ from rtm3d_tpu_torch.decode.solve3d import COR, solve_bbox3d
 from rtm3d_tpu_torch.nn.kfpn import KeypointFPNFusion
 from rtm3d_tpu_torch.nn.model import create_model
 from rtm3d_tpu_torch.nn.spec import ShapeSpec
+from rtm3d_tpu_torch.ops.dcn import dcn_reference, modulated_deform_conv
 from rtm3d_tpu_torch.ops.kfpn_fuse import kfpn_fuse, kfpn_fuse_reference
 from rtm3d_tpu_torch.ops.lm_solver import lm_solve, lm_solve_reference
 from rtm3d_tpu_torch.ops.splat import splat_heatmap, splat_heatmap_reference
@@ -452,6 +453,126 @@ def test_train_and_eval_loss_steps_compose_the_fusion(cuda):
     torch.cuda.synchronize()
     assert kfpn_fuse.launches == before
     assert torch.isfinite(m["loss_items"]).all() and torch.isfinite(ev["loss_items"]).all()
+
+
+def dcn_inputs(batch, channels, hw, dtype, offsets, seed=0):
+    """x, the offset conv's output and a 3x3 weight as the detect path holds
+    them (channels_last), xavier-bounded weights; offsets at the benchmark
+    init's scale (normal, 0.1 px) or uniform in +-4 px (a trained layer's
+    reach: samples beyond every border), mask logits standard normal."""
+    H, W = hw
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((batch, H, W, channels), generator=g, device="cuda")
+    om = torch.randn((batch, H, W, 27), generator=g, device="cuda")
+    if offsets == "4px":
+        om[..., :18] = torch.rand((batch, H, W, 18), generator=g, device="cuda") * 8 - 4
+    else:
+        om[..., :18] *= 0.1
+    bound = (6.0 / (2 * 9 * channels)) ** 0.5
+    w = (torch.rand((channels, 3, 3, channels), generator=g, device="cuda") * 2 - 1) * bound
+    return [t.to(dtype).permute(0, 3, 1, 2) for t in (x, om, w)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", ["init", "4px"])
+@pytest.mark.parametrize("channels,hw", [(256, (26, 80)), (512, (13, 40))], ids=["layer3", "layer4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dcn_kernel_at_the_published_widths(cuda, dtype, channels, hw, offsets):
+    """ResNet-101-DCN's layer3 and layer4 convs at 1280x416, B 8. bf16:
+    the kernel rounds the same fp32 taps and accumulates the same products
+    in fp32 as the plain version, so each output is within one bf16 ulp of
+    it (2**-7 of its magnitude bounds an ulp), give or take a tap that
+    rounds the other way (the kernel sums a tap's four corners with fused
+    multiply-adds): a weight times a tap's ulp, under 2e-3 of the largest
+    output on these inputs. The mean gap stays under 1e-5 of the largest
+    output (4e-7 to 9e-7 on the H100; accumulating in bf16 reads ~1e-2).
+    fp32: against the float64 plain version within 5e-5 of the largest
+    output (fp32 sums read 4e-6 on the H100, 14x under; bf16 products read
+    4e-3 to 1e-2, 80x over). z channels_last, two runs bit-equal, one
+    launch."""
+    x, om, w = dcn_inputs(8, channels, hw, dtype, offsets)
+    before = modulated_deform_conv.launches
+    y = modulated_deform_conv(x, om, w)
+    torch.cuda.synchronize()
+    assert modulated_deform_conv.launches == before + 1
+    assert y.shape == x.shape and y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, modulated_deform_conv(x, om, w))
+    if dtype == torch.bfloat16:
+        p = dcn_reference(x, om, w).double()
+        gap = (y.double() - p).abs()
+        top = p.abs().max()
+        assert (gap <= 2 ** -7 * p.abs() + 2e-3 * top).all(), float(gap.max())
+        assert gap.mean() <= 1e-5 * top, float(gap.mean())
+    else:
+        exact = dcn_reference(x.double(), om.double(), w.double())
+        assert (y.double() - exact).abs().max() <= 5e-5 * exact.abs().max()
+
+
+@pytest.mark.cuda
+def test_dcn_kernel_refuses_what_it_cannot_take(cuda):
+    x, om, w = dcn_inputs(1, 256, (6, 8), torch.bfloat16, "init")
+    for args, match in (((x.contiguous(), om, w), "channels_last"), ((x, om.float(), w), "one dtype"),
+                        ((x.half(), om.half(), w.half()), "one dtype"), ((x, om[:, :18], w), "offsets of shape"),
+                        ((x, om, w.cpu()), "one device"), ((x, om, w[:64]), "multiple of 128"),
+                        ((x[:, :48], om, w[:, :48]), "multiple of 32")):
+        before = modulated_deform_conv.launches
+        with pytest.raises(ValueError, match=match):
+            modulated_deform_conv(*args)
+        assert modulated_deform_conv.launches == before
+
+
+def dcn_cfg(dtype: str):
+    cfg = small_cfg(dtype)
+    cfg.MODEL.BACKBONE = "RESNET-101-DCN"
+    return cfg
+
+
+@pytest.mark.cuda
+def test_dcn_detect_runs_the_kernel_in_all_26_layers(cuda):
+    """A ResNet-101-DCN ``Detector`` in bf16 launches the kernel in each of
+    its 26 deformable layers a call and counts them (``dcn_kernel``), with
+    15 host syncs a call as every detect call; a train step composes
+    them (no launch) and leaves every parameter finite."""
+    cfg = dcn_cfg("bfloat16")
+    model = create_model(cfg, torch.Generator().manual_seed(0))
+    detector = Detector(cfg, model, device="cuda")
+    rng = np.random.RandomState(4)
+    frames = rng.randint(0, 256, (2, 64, 96, 3)).astype(np.uint8)
+    K = np.tile(np.array([[60.0, 0, 48], [0, 60, 32], [0, 0, 1]], np.float32), (2, 1, 1))
+    detector(frames, K)
+    launches, counted = modulated_deform_conv.launches, dict(profiling.counters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(2):
+            detector(frames, K)
+    moved = {k: v - counted.get(k, 0) for k, v in profiling.counters.items() if v != counted.get(k, 0)}
+    assert modulated_deform_conv.launches == launches + 2 * 26
+    assert moved == {"host_syncs": 2 * 15, "kfpn_fused": 2, "dcn_kernel": 2 * 26}
+    state = TrainState.create(create_model(cfg, torch.Generator().manual_seed(0)), cfg, device="cuda")
+    before = modulated_deform_conv.launches
+    state, m = make_train_step(cfg, device="cuda")(state, train_batch(np.random.RandomState(6)))
+    torch.cuda.synchronize()
+    assert modulated_deform_conv.launches == before and torch.isfinite(m["loss_items"]).all()
+    assert all(torch.isfinite(p).all() for p in state.model.parameters())
+
+
+@pytest.mark.cuda
+def test_dcn_network_kernel_matches_composed_cpu(cuda):
+    """The fp32 ResNet-101-DCN network at 128x64, its 26 layers on the
+    kernel on the card (TF32 off), against the composed network on the
+    CPU: the logits within 1e-4 of the largest, as the fp32 DLA-34 is
+    held card against CPU (chip_smoke.py's logits phase)."""
+    cfg = dcn_cfg("float32")
+    model = create_model(cfg, torch.Generator().manual_seed(1)).eval()
+    x = torch.randn(2, 3, 64, 128, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = model(x)
+    net = model.cuda().to(memory_format=torch.channels_last)
+    before = modulated_deform_conv.launches
+    with torch.inference_mode():
+        got = net(x.cuda().contiguous(memory_format=torch.channels_last))
+    assert modulated_deform_conv.launches == before + 26
+    for a, b in zip(got, want):
+        assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max()
 
 
 def test_train_entry_points_raise_without_gpu(monkeypatch):

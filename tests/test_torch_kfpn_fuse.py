@@ -7,10 +7,10 @@
   maps whose H x W is no multiple of the kernel's pixel split;
 - ``KeypointFPNFusion.forward`` keeps the composed path with grad
   enabled, with a spatial grid attached, under autocast and on the CPU;
-  where the fused path is opened to CPU maps (``fusion_kernel_may_run``
+  where the fused path is opened to CPU maps (``kernel_may_run``
   stood in for) it takes it, through ``kfpn_fuse``'s plain version, and
   raises on maps the kernel does not take rather than composing them;
-- ``fusion_kernel_may_run`` opens the fused path to a (fake) CUDA map
+- ``nn/layers.py::kernel_may_run`` opens the fused path to a (fake) CUDA map
   with autograd and autocast off, and to nothing else;
 - the wrapper raises on maps the kernel does not take: an NCHW map, a
   channel count not a multiple of 8, mixed dtypes, float16, an image of
@@ -122,7 +122,7 @@ def test_forward_path(case, monkeypatch):
 
     monkeypatch.setattr(kfpn, "kfpn_fuse", spy)
     if case in ("spatial", "open"):
-        monkeypatch.setattr(kfpn, "fusion_kernel_may_run", lambda x0: True)
+        monkeypatch.setattr(kfpn, "kernel_may_run", lambda x0: True)
     if case == "spatial":
         class OneBand(Grid):
             def all_reduce(self, t, op=None):
@@ -150,7 +150,7 @@ def test_forward_raises_where_the_kernel_refuses_the_maps(fault, match, monkeypa
         names = [f"l{i}" for i in range(3)]
         spec = {n: ShapeSpec(channels=c, stride=4 * 2 ** i) for i, (n, c) in enumerate(zip(names, [16, 24, 32]))}
         module = kfpn.KeypointFPNFusion(names, spec, out_channels=12).to(memory_format=torch.channels_last)
-    monkeypatch.setattr(kfpn, "fusion_kernel_may_run", lambda x0: True)
+    monkeypatch.setattr(kfpn, "kernel_may_run", lambda x0: True)
     with torch.no_grad(), pytest.raises(ValueError, match=match):
         module(feats)
 
@@ -168,7 +168,7 @@ def test_fusion_kernel_may_run(case, opens):
     torch.set_autocast_enabled("cuda", case == "autocast")
     try:
         with torch.set_grad_enabled(case == "grad"):
-            assert kfpn.fusion_kernel_may_run(x0) == opens
+            assert kfpn.kernel_may_run(x0) == opens
     finally:
         torch.set_autocast_enabled("cuda", was)
 
